@@ -1,0 +1,98 @@
+"""Contracts of the PyTorch port (deepclr_tpu_torch): it stands alone from
+the JAX package, its entry points run on CUDA unless asked for the CPU, and
+its kernels count only the launches a CUDA tensor makes."""
+import json
+import os
+import pkgutil
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import __graft_entry__  # noqa: E402
+import deepclr_tpu_torch  # noqa: E402
+from deepclr_tpu_torch import configs, ops  # noqa: E402
+from deepclr_tpu_torch.device import resolve_device  # noqa: E402
+from deepclr_tpu_torch.models import ModelInferenceHelper, build_model  # noqa: E402
+
+REPO = Path(__file__).resolve().parents[1]
+
+
+def test_port_imports_neither_jax_nor_the_jax_package():
+    modules = sorted(m.name for m in pkgutil.walk_packages(deepclr_tpu_torch.__path__, "deepclr_tpu_torch."))
+    assert "deepclr_tpu_torch.models.deepclr" in modules and "deepclr_tpu_torch.ops._cuda" in modules
+    code = (
+        "import importlib, json, sys\n"
+        f"for m in {modules!r}: importlib.import_module(m)\n"
+        "print(json.dumps(sorted(k for k in sys.modules if k.split('.')[0] in "
+        "('jax', 'jaxlib', 'flax', 'deepclr_tpu'))))\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    out = subprocess.run([sys.executable, "-c", code], env=env, cwd=REPO, capture_output=True,
+                         text=True, timeout=120, check=True)
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+
+
+def test_flagship_config_is_a_faithful_copy():
+    assert configs.KITTI_MODEL_CFG == __graft_entry__.KITTI_MODEL_CFG
+
+
+def _small_cfg():
+    cfg = json.loads(json.dumps(configs.KITTI_MODEL_CFG))
+    cfg["params"]["cloud_features"]["params"]["npoint"] = [16]
+    return cfg
+
+
+def test_entry_points_default_to_cuda():
+    """build_model runs on CUDA unless given device='cpu'; without a card it
+    raises instead of falling back to the CPU."""
+    if torch.cuda.is_available():
+        assert next(build_model(_small_cfg()).parameters()).is_cuda
+        return
+    with pytest.raises(RuntimeError, match="CUDA"):
+        build_model(_small_cfg())
+    with pytest.raises(RuntimeError, match="CUDA"):
+        resolve_device("cuda")
+    assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_cpu_path_runs_plain_versions_and_counts_no_launch():
+    model = build_model(_small_cfg(), device="cpu")
+    assert not any(p.is_cuda for p in model.parameters())
+    assert not torch.backends.cuda.matmul.allow_tf32 and not torch.backends.cudnn.allow_tf32
+    ops.reset_launch_counts()
+    rng = np.random.default_rng(0)
+    clouds = [rng.normal(size=(200, 4)).astype(np.float32) for _ in range(2)]
+    y = ModelInferenceHelper(model, num_points=256).predict_batch(clouds[:1], clouds[1:])
+    assert y.shape == (1, 8) and np.isfinite(y).all()
+    assert ops.launch_counts() == {"fps": 0, "min_d2": 0, "fused_sa": 0}
+
+
+def test_init_params_is_seeded():
+    a = build_model(_small_cfg(), device="cpu", seed=3).state_dict()
+    b = build_model(_small_cfg(), device="cpu", seed=3).state_dict()
+    c = build_model(_small_cfg(), device="cpu", seed=4).state_dict()
+    assert all(torch.equal(a[k], b[k]) for k in a)
+    assert not torch.equal(a["_merge_layers.0._embedding._conv._sequential.0._sequential.0.weight"],
+                           c["_merge_layers.0._embedding._conv._sequential.0._sequential.0.weight"])
+    # the pose head starts at the identity dual quaternion
+    assert a["_merge_layers.1.output.bias"].tolist() == [1.0, 0, 0, 0, 0, 0, 0, 0]
+
+
+@pytest.mark.parametrize("change", [
+    ("params", "presorted", True),
+    ("params", "fused", False),
+    ("params", "loss", {"name": "TransformLoss"}),
+    ("merge", "k", 0),
+])
+def test_build_rejects_configs_outside_the_slice(change):
+    cfg = _small_cfg()
+    where, key, value = change
+    section = cfg["params"] if where == "params" else cfg["params"][where]["params"]
+    section[key] = value
+    with pytest.raises(NotImplementedError):
+        build_model(cfg, device="cpu")
