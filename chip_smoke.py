@@ -9,21 +9,39 @@ Phases, in order; any failure raises and exits non-zero:
 2. build: nvcc compiles every kernel in deepclr_tpu_torch/csrc, in parallel;
 3. kernels vs plain: each CUDA kernel against its plain PyTorch twin on the
    card at full width (4 clouds x 16384 points -> 1024 centres, one cloud
-   with a masked tail, one all masked): FPS indices equal, min-d^2 values
-   equal, fused set abstraction within 1e-5 of max(1, max|plain|) in float32
-   and in bfloat16 (the twin rounds where the kernel rounds);
-4. main path: the flagship KITTI model (random weights from seed 0) through
-   ModelInferenceHelper.predict_batch on 16 pairs of 16384-point KITTI-like
-   clouds, and 3 sequential frames through encode_register; outputs finite
-   and (., 8); every kernel's launch count > 0 on each run; the card's
-   prediction on 2 small pairs within 2e-2 of the same model on the CPU;
-5. timing with CUDA events (medians after warm-up): forward pairs/s at
-   16 x 16384, encode and register time, one sequential step (B = 1), each
-   kernel's time, its plain twin's time and its bound at the path's shapes.
+   with a masked tail, one all masked), in float32 and bfloat16: FPS indices
+   equal, min-d^2 values equal, fused set abstraction within 1e-5 of
+   max(1, max|plain|) (the twin rounds where the kernel rounds); the argmax
+   forward's values equal the forward kernel's bit for bit and its indices
+   equal the twin's; the backward kernel, fed the forward kernel's output,
+   within 1e-4 of each result's scale of the twin fed the plain forward's
+   (the kernel sums with atomics, in a varying order);
+4. serving path: the flagship KITTI model (random weights from seed 0)
+   through ModelInferenceHelper.predict_batch on 16 pairs of 16384-point
+   KITTI-like clouds, and 3 sequential frames through encode_register;
+   outputs finite and (., 8); every forward kernel's launch count > 0 on
+   each run; the card's prediction on 2 small pairs within 2e-2 of the same
+   model on the CPU;
+5. train path (outside inference mode, a model of its own): run_trainer
+   with the flagship recipe (KITTI_TRAIN_CFG: Ranger, trans + 200 rot,
+   accumulation 2) for 4 micro-steps (2 optimizer updates) on 5 pairs of
+   16384-point clouds whose sources are random small rigid motions of the
+   templates; before each update every gradient is finite and every
+   set-abstraction weight's gradient non-zero; the loss is finite, the
+   parameters changed, and fps, min_d2, fused_sa and fused_sa_bwd launched;
+   one micro-step with the argmax backward launches fused_sa_argmax; one
+   float32 micro-step on 2 pairs x 4096 gives the CPU's gradients within
+   2e-3 of each gradient's scale;
+6. timing with CUDA events (medians after warm-up): forward pairs/s at
+   16 x 16384, encode and register time, one sequential step (B = 1), the
+   train micro-step and train pairs/s at 5 x 16384, and each kernel's time,
+   its plain twin's time and its bound at its path's shapes.
 
-Prints JSON lines; the one before the last lists the kernels, the last is
-{"ok": true, "device": {...}}.  Imports nothing of jax or deepclr_tpu.
+Prints JSON lines; the one before the last two lists the kernels, then the
+card's name and power limit, and the last is {"ok": true, "device": {...}}.
+Imports nothing of jax or deepclr_tpu.
 """
+import copy
 import json
 import statistics
 import subprocess
@@ -34,27 +52,24 @@ import numpy as np
 import torch
 
 BATCH, NPTS = 16, 16384       # the flagship serving workload: 16 pairs of 16384 points
+TRAIN_BATCH = 5               # the flagship training batch: 5 pairs of 16384 points
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet
 F32_OPS_PER_S = 67e12         # float32 outside the tensor cores
 BF16_OPS_PER_S = 989e12       # dense bf16 tensor cores
+FUSED_SA_PALLAS = "deepclr_tpu/ops/pallas/fused_sa_kernel.py"
 TPU_KERNELS = {
     "fps": ("deepclr_tpu_torch/csrc/fps.cu", "deepclr_tpu/ops/pallas/fps_kernel.py:93"),
-    "min_d2": ("deepclr_tpu_torch/csrc/min_d2.cu", "deepclr_tpu/ops/pallas/fused_sa_kernel.py:119"),
-    "fused_sa": ("deepclr_tpu_torch/csrc/fused_sa.cu", "deepclr_tpu/ops/pallas/fused_sa_kernel.py:441"),
+    "min_d2": ("deepclr_tpu_torch/csrc/min_d2.cu", f"{FUSED_SA_PALLAS}:119"),
+    "fused_sa": ("deepclr_tpu_torch/csrc/fused_sa.cu", f"{FUSED_SA_PALLAS}:441"),
+    "fused_sa_argmax": ("deepclr_tpu_torch/csrc/fused_sa.cu", f"{FUSED_SA_PALLAS}:441"),
+    "fused_sa_bwd": ("deepclr_tpu_torch/csrc/fused_sa.cu", f"{FUSED_SA_PALLAS}:787"),
 }
+SERVING_KERNELS = ("fps", "min_d2", "fused_sa")
+TRAIN_KERNELS = ("fps", "min_d2", "fused_sa", "fused_sa_bwd")
 
 
 def emit(obj):
     print(json.dumps(obj), flush=True)
-
-
-def kitti_like(batch, n, seed):
-    """Clouds with KITTI-like extent (~120 x 120 x 8 m) plus an intensity
-    channel, made from a seed."""
-    rng = np.random.default_rng(seed)
-    pts = rng.normal(size=(batch, n, 3)).astype(np.float32) * np.array([30.0, 30.0, 2.0], np.float32)
-    extra = rng.uniform(0.0, 1.0, size=(batch, n, 1)).astype(np.float32)
-    return np.concatenate([pts, extra], axis=-1)
 
 
 def cuda_ms(fn, reps):
@@ -88,9 +103,19 @@ def sa_operands(model, points, mask):
                 centers=centers.contiguous(), weights=weights, biases=biases, radius=radius)
 
 
+def fused_operands(op, dtype):
+    """Prepared fused-SA operands and their culling bitmap."""
+    from deepclr_tpu_torch.ops import fused_sa
+
+    sa_op = fused_sa.prepare(op["xyz"], op["centers"], op["weights"], op["biases"], op["radius"],
+                             op["feats"], op["mask"], dtype)
+    return sa_op, fused_sa.cull_bitmap(fused_sa.block_min_d2(sa_op.pts4, sa_op.centers), sa_op.r2max)
+
+
 def check_kernels(model, dev):
     """Phase 3: each kernel against its plain twin on the card."""
     from deepclr_tpu_torch.ops import fps, fused_sa
+    from deepclr_tpu_torch.synthetic import kitti_like
 
     pts = torch.from_numpy(kitti_like(4, NPTS, seed=3)).to(dev)
     mask = torch.ones(4, NPTS, dtype=torch.bool, device=dev)
@@ -112,23 +137,52 @@ def check_kernels(model, dev):
         raise AssertionError(f"min_d2: max |diff| {(got - ref).abs().max().item()} vs the plain version")
     errs["min_d2"] = 0.0
 
-    # The twin rounds to the compute dtype where the kernel does, so both agree
-    # to float32 summation order; a kernel that skipped a bfloat16 rounding
-    # would be off by ~2^-9 of the scale.
-    for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 1e-5)):
-        sa_op = fused_sa.prepare(op["xyz"], op["centers"], op["weights"], op["biases"], op["radius"],
-                                 op["feats"], op["mask"], dtype)
-        active = fused_sa.cull_bitmap(fused_sa.block_min_d2(sa_op.pts4, sa_op.centers), sa_op.r2max)
-        got = fused_sa.fused_sa_core(sa_op, active)
+    g = torch.randn(4, op["npoint"], 64, generator=torch.Generator().manual_seed(4)).to(dev)
+    # the path's dtype, bfloat16, is checked last, so errs keeps its errors
+    for dtype in (torch.float32, torch.bfloat16):
+        sa_op, active = fused_operands(op, dtype)
+        # The twin rounds to the compute dtype where the kernel does, so both
+        # agree to float32 summation order; a kernel that skipped a bfloat16
+        # rounding would be off by ~2^-9 of the scale.
+        out = fused_sa.fused_sa_core(sa_op, active)
         ref = fused_sa._fused_sa_plain(sa_op)
-        err = (got - ref).abs().max().item()
+        err = (out - ref).abs().max().item()
         scale = max(1.0, ref.abs().max().item())
         emit({"check": "fused_sa", "dtype": str(dtype), "max_abs_err": err, "max_abs_ref": scale,
-              "tolerance": tol * scale, "visited_blocks": active.float().mean().item()})
-        if not err <= tol * scale or got[3].abs().max().item() != 0.0:
-            raise AssertionError(f"fused_sa {dtype}: max |diff| {err} > {tol * scale} or a non-empty "
+              "tolerance": 1e-5 * scale, "visited_blocks": active.float().mean().item()})
+        if not err <= 1e-5 * scale or out[3].abs().max().item() != 0.0:
+            raise AssertionError(f"fused_sa {dtype}: max |diff| {err} > {1e-5 * scale} or a non-empty "
                                  "ball in the all-masked cloud")
-        errs["fused_sa"] = err  # the path's dtype, bfloat16, is checked last
+        errs["fused_sa"] = err
+
+        # B5: the same values bit for bit, the twin's tie rule (lowest index)
+        out_a, jstar = fused_sa.fused_sa_argmax(sa_op, active)
+        ref_a, ref_j = fused_sa._fused_sa_argmax_plain(sa_op)
+        j_diff = int((jstar != ref_j).sum())
+        emit({"check": "fused_sa_argmax", "dtype": str(dtype), "values_equal_forward_kernel":
+              bool(torch.equal(out_a, out)), "index_mismatches": j_diff,
+              "empty_balls": int((jstar == -1).sum()), "max_abs_err_vs_plain": (out_a - ref_a).abs().max().item()})
+        if not torch.equal(out_a, out) or j_diff or not (jstar[3] == -1).all():
+            raise AssertionError(f"fused_sa_argmax {dtype}: values differ from the forward kernel or "
+                                 f"{j_diff} indices differ from the plain version")
+        errs["fused_sa_argmax"] = (out_a - ref_a).abs().max().item()
+
+        # B4: fed B2's output; the twin is fed the plain forward's
+        got = fused_sa.fused_sa_bwd(sa_op, active, out, g)
+        ref = fused_sa._fused_sa_bwd_plain(sa_op, fused_sa._fused_sa_plain(sa_op), g)
+        worst = 0.0
+        for name, x, y in zip(("da", "dbc", "dw2", "dw3", "db2", "db3"), [got[0], got[1], *got[2], *got[3]],
+                              [ref[0], ref[1], *ref[2], *ref[3]]):
+            scale = max(1e-3, y.abs().max().item())
+            err = (x - y).abs().max().item()
+            worst = max(worst, err)
+            emit({"check": "fused_sa_bwd", "dtype": str(dtype), "result": name, "max_abs_err": err,
+                  "scale": scale, "tolerance": 1e-4 * scale})
+            if not err <= 1e-4 * scale:
+                raise AssertionError(f"fused_sa_bwd {dtype} {name}: max |diff| {err} > 1e-4 of the scale {scale}")
+        if got[2][1].abs().max().item() == 0.0 or got[0][3].any() or got[1][3].any():
+            raise AssertionError(f"fused_sa_bwd {dtype}: no winner selected, or a gradient in the all-masked cloud")
+        errs["fused_sa_bwd"] = worst
     return errs
 
 
@@ -136,6 +190,7 @@ def run_main_path(model, dev):
     """Phase 4: predict_batch on the flagship workload, then sequential frames."""
     from deepclr_tpu_torch import ops
     from deepclr_tpu_torch.models import ModelInferenceHelper
+    from deepclr_tpu_torch.synthetic import kitti_like
 
     templates, sources = kitti_like(BATCH, NPTS, seed=1), kitti_like(BATCH, NPTS, seed=2)
     helper = ModelInferenceHelper(model, num_points=NPTS)
@@ -154,7 +209,7 @@ def run_main_path(model, dev):
     if outs[0] is not None or any(o.shape != (8,) or not np.isfinite(o).all() for o in outs[1:]):
         raise AssertionError(f"sequential predict: {outs}")
     for run, counts in (("predict_batch", pair_counts), ("sequential", seq_counts)):
-        missing = [k for k in TPU_KERNELS if counts.get(k, 0) < 1]
+        missing = [k for k in SERVING_KERNELS if counts.get(k, 0) < 1]
         if missing:
             raise AssertionError(f"{run}: kernels {missing} never launched ({counts})")
     emit({"main_path": {"predict_batch_y0": y[0].tolist(), "launches_predict_batch": pair_counts,
@@ -177,8 +232,143 @@ def run_main_path(model, dev):
     return pair_counts, templates, sources
 
 
+def train_parts(model_cfg, device, seed=0):
+    """Model, optimizer, schedule, loss and metrics of the flagship recipe."""
+    from deepclr_tpu_torch import solver
+    from deepclr_tpu_torch.configs import KITTI_TRAIN_CFG
+    from deepclr_tpu_torch.losses import make_loss_fn, make_metric_fns
+    from deepclr_tpu_torch.models import build_model
+
+    model = build_model(model_cfg, device=device, seed=seed)
+    metrics = KITTI_TRAIN_CFG["metrics"]
+    return (model, solver.make_optimizer(KITTI_TRAIN_CFG, model.parameters()),
+            solver.make_schedule(KITTI_TRAIN_CFG), make_loss_fn(metrics["loss"], model_cfg["label_type"]),
+            make_metric_fns(metrics["loss"], metrics["other"], model_cfg["label_type"]))
+
+
+def run_train_path(dev):
+    """Phase 5: the flagship train step on the card, through run_trainer."""
+    from deepclr_tpu_torch import ops
+    from deepclr_tpu_torch.configs import KITTI_MODEL_CFG, KITTI_TRAIN_CFG
+    from deepclr_tpu_torch.engine import create_train_state, make_train_step, run_trainer
+    from deepclr_tpu_torch.synthetic import train_batch
+
+    model, opt, schedule, loss_fn, metric_fns = train_parts(KITTI_MODEL_CFG, dev)
+    sa_names = [n for n, _ in model.named_parameters() if n.startswith("_cloud_layers")]
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    seen = []
+
+    def inspect_grads(optimizer, args, kwargs):
+        # before every update: all gradients finite, the SA weights' non-zero
+        grads = {n: p.grad for n, p in model.named_parameters()}
+        bad = [n for n, g in grads.items() if g is None or not torch.isfinite(g).all()]
+        zero = [n for n in sa_names if n.endswith("weight") and grads[n].abs().max().item() == 0.0]
+        seen.append({"non_finite_or_missing": bad, "zero_sa_weight_grads": zero,
+                     "sa_weight_grad_absmax": max(grads[n].abs().max().item() for n in sa_names)})
+
+    hook = opt.register_step_pre_hook(inspect_grads)
+    cfg = copy.deepcopy(KITTI_TRAIN_CFG)
+    cfg["optimizer"]["max_iterations"] = 4
+    cfg["logging"].update(log_period=1, checkpoint_period=10**9)
+    batches = [train_batch(TRAIN_BATCH, NPTS, seed=20 + i) for i in range(4)]
+    ops.reset_launch_counts()
+    state = run_trainer(cfg, model, batches, None, opt, schedule, loss_fn, metric_fns)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    hook.remove()
+    ema = {k: v.item() for k, v in state.metrics_ema.items()}
+    changed = sum(int(not torch.equal(p.detach(), before[n])) for n, p in model.named_parameters())
+    emit({"train_path": {"micro_steps": state.step, "updates": len(seen), "metrics_ema": ema,
+                         "launches_4_micro_steps": counts, "grad_checks": seen,
+                         "parameters_changed": changed, "parameters": len(before)}})
+    if state.step != 4 or len(seen) != 2:
+        raise AssertionError(f"train path: {state.step} micro-steps, {len(seen)} updates")
+    if any(s["non_finite_or_missing"] or s["zero_sa_weight_grads"] for s in seen):
+        raise AssertionError(f"train path: bad gradients {seen}")
+    if not all(np.isfinite(v) for v in ema.values()) or changed != len(before):
+        raise AssertionError(f"train path: loss {ema}, {changed} of {len(before)} parameters changed")
+    missing = [k for k in TRAIN_KERNELS if counts.get(k, 0) < 1]
+    if missing:
+        raise AssertionError(f"train path: kernels {missing} never launched ({counts})")
+
+    # one micro-step with the argmax backward
+    model.cloud_features._sa0.backward = "argmax"
+    step = make_train_step(model, opt, loss_fn, metric_fns)
+    ops.reset_launch_counts()
+    step(create_train_state(model), batches[0], schedule(4))
+    torch.cuda.synchronize()
+    argmax_counts = ops.launch_counts()
+    model.cloud_features._sa0.backward = "kernel"
+    emit({"train_path_argmax_backward": {"launches_1_micro_step": argmax_counts}})
+    if argmax_counts["fused_sa_argmax"] < 1 or argmax_counts["fused_sa_bwd"] != 0:
+        raise AssertionError(f"argmax backward: launches {argmax_counts}")
+
+    check_train_card_vs_cpu(dev)
+    return model, opt, loss_fn, metric_fns, counts, argmax_counts, batches
+
+
+def check_train_card_vs_cpu(dev, tol=2e-3):
+    """One float32 micro-step on 2 pairs x 4096: every parameter's gradient
+    on the card against the CPU (plain twins), within tol of its scale."""
+    from deepclr_tpu_torch.configs import KITTI_MODEL_CFG
+    from deepclr_tpu_torch.synthetic import train_batch
+
+    cfg = copy.deepcopy(KITTI_MODEL_CFG)
+    cfg["params"]["compute_dtype"] = "float32"
+    batch = train_batch(2, 4096, seed=40)
+    grads = {}
+    for where, device in (("card", dev), ("cpu", torch.device("cpu"))):
+        model, _, _, loss_fn, _ = train_parts(cfg, device, seed=3)
+        b = {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+        y_pred, _ = model(b["template"], b["source"], b["template_mask"], b["source_mask"])
+        loss_fn(y_pred, b["y"]).backward()
+        grads[where] = {n: p.grad.detach().cpu() for n, p in model.named_parameters()}
+    worst = max(((grads["card"][n] - g).abs().max() / max(1e-6, g.abs().max().item())).item()
+                for n, g in grads["cpu"].items())
+    emit({"check": "train_card_vs_cpu_gradients", "pairs": 2, "points": 4096, "dtype": "float32",
+          "max_err_of_scale": worst, "tolerance": tol})
+    if not worst <= tol:
+        raise AssertionError(f"card vs CPU gradients differ by {worst} of their scale")
+
+
+def nbytes(*ts):
+    return sum(t_.numel() * t_.element_size() for t_ in ts)
+
+
+def bound(byts, f32_ops, bf16_ops=0.0):
+    t_bytes = byts / HBM_BYTES_PER_S
+    t_ops = f32_ops / F32_OPS_PER_S + bf16_ops / BF16_OPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def pair_stats(sa_op):
+    """In-radius pairs of this run's data, and the points they touch."""
+    n = sa_op.pts4.shape[1]
+    x, c = sa_op.pts4[..., None, :3], sa_op.centers[:, None]
+    pairs = points_hit = 0
+    for j in range(0, n, 1024):
+        d2 = ((x[:, j:j + 1024] - c) ** 2).sum(-1)
+        hit = (d2 < sa_op.r2max) & (sa_op.pts4[:, j:j + 1024, None, 3] == 0)
+        pairs += int(hit.sum())
+        points_hit += int(hit.any(-1).sum())
+    return pairs, points_hit
+
+
+def sa_work(sa_op, active, pairs, points_hit, write_out=True):
+    """Bytes, float32 and compute-dtype operations of one fused forward:
+    the points, centres, centre term, bitmap, weights and (with `write_out`)
+    the output once, plus the rows of the point term `a` of points inside
+    some ball (the kernel reads no other row); layer-1 add + ReLU in
+    float32, the two tail layers' multiply-adds in the compute dtype."""
+    b, p = sa_op.bc.shape[:2]
+    h1, h2, h3 = sa_op.a.shape[-1], sa_op.tail_w[0].shape[1], sa_op.tail_w[1].shape[1]
+    byts = (nbytes(sa_op.pts4, sa_op.centers, sa_op.bc, active, *sa_op.tail_w, *sa_op.tail_b, sa_op.r2)
+            + points_hit * h1 * 4 + (b * p * h3 * 4 if write_out else 0))
+    return byts, 2.0 * pairs * h1, 2.0 * pairs * (h1 * h2 + h2 * h3)
+
+
 def time_path(model, dev, templates, sources):
-    """Phase 5: end-to-end forward rate and per-kernel times at the path's shapes."""
+    """Phase 6, serving: end-to-end forward rate and the forward kernels at their path's shapes."""
     from deepclr_tpu_torch.ops import fps, fused_sa
 
     t = torch.from_numpy(templates).to(dev)
@@ -196,29 +386,10 @@ def time_path(model, dev, templates, sources):
     op = sa_operands(model, both, both_mask)
     b, n, p = op["xyz"].shape[0], op["xyz"].shape[1], op["npoint"]
     dtype = model.cloud_features._sa0.compute_dtype
-    sa_op = fused_sa.prepare(op["xyz"], op["centers"], op["weights"], op["biases"], op["radius"],
-                             op["feats"], op["mask"], dtype)
+    sa_op, active = fused_operands(op, dtype)
     pts4, centers = sa_op.pts4, sa_op.centers
     min_d2 = fused_sa.block_min_d2(pts4, centers)
-    active = fused_sa.cull_bitmap(min_d2, sa_op.r2max)
-    h1, h2, h3 = sa_op.a.shape[-1], sa_op.tail_w[0].shape[1], sa_op.tail_w[1].shape[1]
-    x, c = pts4[..., None, :3], centers[:, None]
-    pairs = points_hit = 0
-    for j in range(0, n, 1024):  # in-radius pairs of this run's data, and the points they touch
-        d2 = ((x[:, j:j + 1024] - c) ** 2).sum(-1)
-        hit = (d2 < sa_op.r2max) & (pts4[:, j:j + 1024, None, 3] == 0)
-        pairs += int(hit.sum())
-        points_hit += int(hit.any(-1).sum())
-    nc = min_d2.shape[1]
-
-    def nbytes(*ts):
-        return sum(t_.numel() * t_.element_size() for t_ in ts)
-
-    def bound(byts, f32_ops, bf16_ops=0.0):
-        t_bytes = byts / HBM_BYTES_PER_S
-        t_ops = f32_ops / F32_OPS_PER_S + bf16_ops / BF16_OPS_PER_S
-        return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
-
+    pairs, points_hit = pair_stats(sa_op)
     kernels = {
         "fps": dict(
             ms=cuda_ms(lambda: fps.furthest_point_sample(op["xyz"], p, op["mask"]), reps=10),
@@ -233,19 +404,73 @@ def time_path(model, dev, templates, sources):
         "fused_sa": dict(
             ms=cuda_ms(lambda: fused_sa.fused_sa_core(sa_op, active), reps=20),
             plain_ms=cuda_ms(lambda: fused_sa._fused_sa_plain(sa_op), reps=3),
-            # layer-1 add + ReLU in float32; the two tail layers' multiply-adds in the compute dtype.
-            # Only the rows of the point term `a` of points inside some ball are read.
-            bound=bound(nbytes(pts4, centers, sa_op.bc, active, *sa_op.tail_w, *sa_op.tail_b, sa_op.r2)
-                        + points_hit * h1 * 4 + b * p * h3 * 4,
-                        2.0 * pairs * h1, 2.0 * pairs * (h1 * h2 + h2 * h3))),
+            bound=bound(*sa_work(sa_op, active, pairs, points_hit))),
     }
     metrics = {
         "forward_pairs_per_s": BATCH / (fwd_ms / 1e3), "forward_ms": fwd_ms,
         "encode_2B_ms": encode_ms, "register_B_ms": register_ms, "sequential_step_ms": step_ms,
         "batch_pairs": BATCH, "points": NPTS, "compute_dtype": str(dtype),
         "in_radius_pairs": pairs, "in_radius_pairs_per_centre": pairs / (b * p), "points_in_a_ball": points_hit,
-        "culling_chunks": nc, "visited_block_share": active.float().mean().item(),
+        "culling_chunks": min_d2.shape[1], "visited_block_share": active.float().mean().item(),
     }
+    return metrics, kernels
+
+
+def time_train(dev, model, opt, loss_fn, metric_fns, batches):
+    """Phase 6, training: the flagship micro-step at 5 x 16384 (accumulation
+    2, so every other micro-step updates), and the two training kernels at
+    the train path's shapes (2B = 10 clouds)."""
+    from deepclr_tpu_torch.engine import create_train_state, make_train_step
+    from deepclr_tpu_torch.ops import fused_sa
+
+    step = make_train_step(model, opt, loss_fn, metric_fns, accumulation_steps=2)
+    state = create_train_state(model)
+    dev_batches = [{k: torch.from_numpy(v).to(dev) for k, v in b.items()} for b in batches]
+    times = []
+    for i in range(12):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        step(state, dev_batches[i % len(dev_batches)], 1e-6)
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    times = times[2:]  # warm-up: one update and one accumulation
+    micro_ms = statistics.mean(times)
+
+    b0 = dev_batches[0]
+    both = torch.cat([b0["template"], b0["source"]])
+    with torch.no_grad():
+        op = sa_operands(model, both, torch.cat([b0["template_mask"], b0["source_mask"]]))
+        sa_op, active = fused_operands(op, model.cloud_features._sa0.compute_dtype)
+    out = fused_sa.fused_sa_core(sa_op, active)
+    g = torch.randn_like(out)
+    pairs, points_hit = pair_stats(sa_op)
+    byts, f32_ops, cd_ops = sa_work(sa_op, active, pairs, points_hit)
+    recompute_bytes = sa_work(sa_op, active, pairs, points_hit, write_out=False)[0]
+    b, n, h1 = sa_op.a.shape
+    p, h3 = out.shape[1:]
+    dw_bytes = 4 * sum(w.numel() for w in (*sa_op.tail_w, *sa_op.tail_b))  # float32 dW and db
+    kernels = {
+        "fused_sa_argmax": dict(
+            ms=cuda_ms(lambda: fused_sa.fused_sa_argmax(sa_op, active), reps=20),
+            plain_ms=cuda_ms(lambda: fused_sa._fused_sa_argmax_plain(sa_op), reps=3),
+            # the forward's work, plus the int32 winner per (centre, column)
+            bound=bound(byts + b * p * h3 * 4, f32_ops, cd_ops)),
+        "fused_sa_bwd": dict(
+            ms=cuda_ms(lambda: fused_sa.fused_sa_bwd(sa_op, active, out, g), reps=20),
+            plain_ms=cuda_ms(lambda: fused_sa._fused_sa_bwd_plain(sa_op, out, g), reps=3),
+            # the forward's recompute (reads only: out is read here, not
+            # written) plus the tail's backward multiply-adds (dW and the
+            # input delta per layer: twice the forward's); g and out read,
+            # da (every row), dbc, dW and db written
+            bound=bound(recompute_bytes + nbytes(out, g) + b * n * h1 * 4 + b * p * h1 * 4 + dw_bytes,
+                        f32_ops, 3.0 * cd_ops)),
+    }
+    metrics = {"train_micro_step_ms": micro_ms, "train_micro_step_ms_each": times,
+               "train_pairs_per_s": TRAIN_BATCH / (micro_ms / 1e3), "train_batch_pairs": TRAIN_BATCH,
+               "train_accumulation_steps": 2, "train_in_radius_pairs": pairs,
+               "train_in_radius_pairs_per_centre": pairs / (b * p),
+               "train_visited_block_share": active.float().mean().item()}
     return metrics, kernels
 
 
@@ -272,7 +497,7 @@ def main():
     ptxas = {}
     for name, path in paths.items():
         log = path.parent / f"{name}.log"
-        ptxas[name] = [ln.strip() for ln in log.read_text().splitlines() if "registers" in ln] \
+        ptxas[name] = [ln.strip() for ln in log.read_text().splitlines() if "registers" in ln or "spill" in ln] \
             if log.exists() else []
     emit({"phase": "build", "seconds": build_s, "ptxas": ptxas})
 
@@ -280,9 +505,18 @@ def main():
         model = build_model(KITTI_MODEL_CFG, device="cuda", seed=0)
         errs = check_kernels(model, dev)
         emit({"phase": "kernels_vs_plain", "max_abs_err": errs})
-        launches, templates, sources = run_main_path(model, dev)
+        serve_counts, templates, sources = run_main_path(model, dev)
+    # parameters built under inference mode cannot be trained: the train
+    # path builds its own model
+    train_model, opt, loss_fn, metric_fns, train_counts, argmax_counts, batches = run_train_path(dev)
+    with torch.inference_mode():
         metrics, kernels = time_path(model, dev, templates, sources)
-    emit({"metrics": metrics, "card": card})
+    train_metrics, train_kernels = time_train(dev, train_model, opt, loss_fn, metric_fns, batches)
+    kernels.update(train_kernels)
+    emit({"metrics": {**metrics, **train_metrics}, "card": card})
+    launches = {**{k: serve_counts[k] for k in SERVING_KERNELS},
+                "fused_sa_bwd": train_counts["fused_sa_bwd"],
+                "fused_sa_argmax": argmax_counts["fused_sa_argmax"]}
     rows = []
     for name, (source, replaces) in TPU_KERNELS.items():
         k = kernels[name]
@@ -291,6 +525,7 @@ def main():
                      "launches": launches[name], "max_abs_err": errs[name], "ms": k["ms"],
                      "plain_ms": k["plain_ms"], "bound_ms": bound_ms, "bound_by": bound_by,
                      "library_ms": None})
+    emit({"launches_train_path_4_micro_steps": train_counts})
     emit({"kernels": rows})
     print(f"nvidia-smi: {card}", flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}})

@@ -1,6 +1,11 @@
-"""Model configurations of the port.  ``KITTI_MODEL_CFG`` is the flagship
-KITTI pairwise-registration model (16384-point clouds with xyz + intensity,
-bf16 compute), a copy of the JAX package's entry-point config."""
+"""Configurations of the port.  ``KITTI_MODEL_CFG`` is the flagship KITTI
+pairwise-registration model (16384-point clouds with xyz + intensity, bf16
+compute), a copy of the JAX package's entry-point config.
+``KITTI_TRAIN_CFG`` is its training recipe, a copy of the metrics,
+optimizer, scheduler and logging sections and the batch size of
+``configs/training/kitti_base.yaml``: 5 pairs a micro-step, trans +
+200 rot, Ranger at 5e-4 with weight decay 1e-3 and 2 accumulation steps,
+and the cyclic / flat / cosine schedule."""
 
 KITTI_MODEL_CFG = {
     "input_dim": 4,
@@ -29,5 +34,50 @@ KITTI_MODEL_CFG = {
             "name": "OutputSimple",
             "params": {"mlp": [256, 256, 512, 512, 1024], "linear": [1024, 512, 256]},
         },
+    },
+}
+
+KITTI_TRAIN_CFG = {
+    "data_loader": {"batch_size": 5},
+    "metrics": {
+        "loss": [
+            {"type": "trans", "weights": [1.0], "params": {"p": 2}},
+            {"type": "rot", "weights": [200.0], "params": {"p": 2}},
+        ],
+        "other": [{"type": "quat_norm"}, {"type": "dual_constraint"}],
+    },
+    "optimizer": {
+        "name": "Ranger",
+        "max_iterations": 800000,
+        "base_lr": 0.0005,
+        "weight_decay": 0.001,
+        "bias_lr_factor": 2.0,
+        "weight_decay_bias": 0.0,
+        "accumulation_steps": 2,
+    },
+    "scheduler": {
+        "name": "CyclicLRWithFlatAndCosineAnnealing",
+        "on_iteration": True,
+        "on_validation": False,
+        "needs_metrics": False,
+        "params": {
+            "cyclic_iterations": 600000,
+            "flat_iterations": 100000,
+            "annealing_iterations": 100000,
+            "base_lr": 0.0000001,
+            "max_lr": 0.0005,
+            "step_size_up": 4000,
+            "mode": "triangular",
+            "cycle_momentum": False,
+        },
+    },
+    "logging": {
+        "add_graph": False,
+        "summary_period": 20,
+        "log_period": 200,
+        "checkpoint_period": 24000,
+        "checkpoint_n_saved": 10,
+        "validation_period": 24000,
+        "running_average_alpha": 0.001,
     },
 }

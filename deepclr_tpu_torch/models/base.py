@@ -88,7 +88,7 @@ class ModelInferenceHelper:
             raise RuntimeError("sources and templates must have equal length.")
         t_pts, t_mask = self._stack(templates, "template")
         s_pts, s_mask = self._stack(sources, "source")
-        return self._model(t_pts, s_pts, t_mask, s_mask).cpu().numpy()
+        return self._model(t_pts, s_pts, t_mask, s_mask)[0].cpu().numpy()
 
     @torch.inference_mode()
     def predict(self, source: np.ndarray,

@@ -7,12 +7,14 @@ from torch import nn
 
 from ..device import resolve_device, strict_float32
 from ..geometry import LabelType
-from .deepclr import DeepCLR, MotionEmbedding, OutputSimple, SetAbstraction
+from .deepclr import (AccumulatedLoss, DeepCLR, MotionEmbedding, OutputSimple, SetAbstraction,
+                      TransformLoss, TransformUncertaintyLoss)
 from .layers import Dense
 
 __all__ = ["build_model", "init_params"]
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+_LOSSES = {"TransformLoss": TransformLoss, "TransformUncertaintyLoss": TransformUncertaintyLoss}
 
 
 def _section(params: dict, key: str, name: str) -> dict:
@@ -34,11 +36,26 @@ def init_params(model: nn.Module, seed: int = 0) -> nn.Module:
     return model
 
 
+def _loss_module(loss_cfg, label_type: LabelType):
+    """The in-model loss: one loss config, or a list summed by AccumulatedLoss."""
+    if loss_cfg is None:
+        return None
+
+    def make(lc):
+        if lc["name"] not in _LOSSES:
+            raise NotImplementedError(f"loss {lc['name']} is not ported")
+        return _LOSSES[lc["name"]](label_type=label_type, **dict(lc.get("params") or {}))
+
+    if isinstance(loss_cfg, (list, tuple)):
+        return AccumulatedLoss([make(lc) for lc in loss_cfg])
+    return make(loss_cfg)
+
+
 def build_model(model_cfg, device="cuda", seed: int = 0) -> DeepCLR:
     """Build DeepCLR from a model config dict (input_dim, point_dim,
     label_type, model_type, params{batch_norm, dropout, compute_dtype,
-    cloud_features, merge, output}), initialize it from ``seed`` and put it
-    in eval mode on ``device``.  Runs on CUDA unless ``device='cpu'``;
+    cloud_features, merge, output[, loss]}), initialize it from ``seed`` and
+    put it in eval mode on ``device``.  Runs on CUDA unless ``device='cpu'``;
     raises when CUDA is asked for and absent."""
     device = resolve_device(device)
     strict_float32()
@@ -48,8 +65,6 @@ def build_model(model_cfg, device="cuda", seed: int = 0) -> DeepCLR:
     input_dim = int(model_cfg.get("input_dim", 3))
     point_dim = int(model_cfg.get("point_dim", 3))
     params = dict(model_cfg.get("params") or {})
-    if params.get("loss") is not None:
-        raise NotImplementedError("in-model loss modules are not ported")
     if params.get("presorted", False):
         raise NotImplementedError("presorted (host Morton-sorted) input is not ported")
     if not params.get("fused", True):
@@ -65,6 +80,6 @@ def build_model(model_cfg, device="cuda", seed: int = 0) -> DeepCLR:
                           dropout_keep=float(params.get("dropout", 1.0)),
                           **_section(params, "output", "OutputSimple"), **common)
     model = DeepCLR(cloud_features, merge, output, input_dim=input_dim, point_dim=point_dim,
-                    label_type=label_type)
+                    label_type=label_type, loss_module=_loss_module(params.get("loss"), label_type))
     init_params(model, seed)
     return model.to(device).eval()

@@ -5,6 +5,8 @@
     output/conv/dense_{i}                  -> _merge_layers.1.conv._sequential.{i}._sequential.0.*
     output/linear/dense_{i}                -> _merge_layers.1.linear._sequential.{i}._sequential.0.*
     output/output                          -> _merge_layers.1.output.*
+    loss_module/{sx,sq}                    -> _loss_layer._{sx,sq}
+    loss_module/losses_{i}/{sx,sq}         -> _loss_layer.losses.{i}._{sx,sq}
 
 Kernels are (in, out); weights here are (out, in).  The names are the
 reference PyTorch DeepCLR state-dict keys, so the JAX package's
@@ -92,6 +94,14 @@ def load_jax_params(params: Mapping) -> Dict[str, torch.Tensor]:
     dense_stack("output/linear", "_merge_layers.1.linear", required=False)
     put("_merge_layers.1.output.weight", take("output/output/kernel").T)
     put("_merge_layers.1.output.bias", take("output/output/bias"))
+
+    # learned weights of a TransformUncertaintyLoss, alone or inside an AccumulatedLoss
+    loss_re = re.compile(r"loss_module/(?:losses_(\d+)/)?(sx|sq)")
+    for key in list(flat):
+        m = loss_re.fullmatch(key)
+        if m:
+            where = "_loss_layer." if m.group(1) is None else f"_loss_layer.losses.{m.group(1)}."
+            put(f"{where}_{m.group(2)}", take(key))
 
     unused = sorted(set(flat) - used)
     if unused:

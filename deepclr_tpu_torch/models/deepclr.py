@@ -18,10 +18,12 @@ from torch import nn
 
 from .. import ops
 from ..geometry import LabelType, se3
+from ..losses import rot_loss, trans_loss
 from .layers import MLP, Dense
 from .pointnet2 import SetAbstractionMSG
 
-__all__ = ["SetAbstraction", "MotionEmbedding", "OutputSimple", "DeepCLR"]
+__all__ = ["SetAbstraction", "MotionEmbedding", "OutputSimple", "TransformLoss",
+           "TransformUncertaintyLoss", "AccumulatedLoss", "DeepCLR"]
 
 
 class SetAbstraction(nn.Module):
@@ -126,7 +128,9 @@ class OutputSimple(nn.Module):
     """Mini-PointNet + FC pose head.  ``linear[0]`` is the input width
     (== mlp[-1]), not a layer.  Label-specific activations keep the rotation
     bounded: for dual quaternions sigmoid on the real scalar part and tanh
-    on the real vector part; the pose Dense runs in float32."""
+    on the real vector part; the pose Dense runs in float32.
+    ``dropout_keep`` < 1 is the reference's training-time dropout; inference
+    does not use it, and the train step refuses it (not ported)."""
 
     def __init__(self, in_dim: int, mlp: Sequence[int], linear: Sequence[int],
                  label_type: LabelType, batch_norm: bool = False, dropout_keep: float = 1.0,
@@ -135,6 +139,7 @@ class OutputSimple(nn.Module):
         if batch_norm:
             raise NotImplementedError("batch_norm in OutputSimple is not ported")
         self.label_type = label_type
+        self.dropout_keep = float(dropout_keep)
         self.conv = MLP(in_dim, mlp, compute_dtype)
         self.linear = MLP(linear[0], linear[1:], compute_dtype)
         self.output = Dense(linear[-1], label_type.dim, bias_value=label_type.bias)
@@ -151,8 +156,50 @@ class OutputSimple(nn.Module):
         return y
 
 
+class TransformLoss(nn.Module):
+    """Fixed-weight translation + rotation loss."""
+
+    def __init__(self, label_type: LabelType, p: int = 2, sx: float = 1.0, sq: float = 1.0):
+        super().__init__()
+        self.label_type, self.p, self.sx, self.sq = label_type, int(p), float(sx), float(sq)
+
+    def forward(self, y_pred: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+        p_loss = trans_loss(y_pred, y, self.label_type, p=self.p, reduction="mean")
+        q_loss = rot_loss(y_pred, y, self.label_type, p=self.p, reduction="mean")
+        return p_loss * self.sx + q_loss * self.sq
+
+
+class TransformUncertaintyLoss(nn.Module):
+    """Homoscedastic-uncertainty weighting (Kendall) with learned log-variances
+    ``sx`` and ``sq``, (1,) parameters initialised from the config.  They are
+    stored as ``_sx`` / ``_sq``, the reference state-dict names."""
+
+    def __init__(self, label_type: LabelType, p: int = 2, sx: float = 0.0, sq: float = 0.0):
+        super().__init__()
+        self.label_type, self.p = label_type, int(p)
+        self._sx = nn.Parameter(torch.tensor([float(sx)]))
+        self._sq = nn.Parameter(torch.tensor([float(sq)]))
+
+    def forward(self, y_pred: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+        p_loss = trans_loss(y_pred, y, self.label_type, p=self.p, reduction="mean")
+        q_loss = rot_loss(y_pred, y, self.label_type, p=self.p, reduction="mean")
+        sx, sq = self._sx, self._sq
+        return torch.sum(p_loss * torch.exp(-sx) + sx + q_loss * torch.exp(-sq) + sq)
+
+
+class AccumulatedLoss(nn.Module):
+    """Sum of several loss modules."""
+
+    def __init__(self, losses: Sequence[nn.Module]):
+        super().__init__()
+        self.losses = nn.ModuleList(losses)
+
+    def forward(self, y_pred: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+        return sum(loss(y_pred, y) for loss in self.losses)
+
+
 class DeepCLR(nn.Module):
-    """End-to-end correspondence-less registration network (inference).
+    """End-to-end correspondence-less registration network.
 
     * ``encode``: per-cloud features (SetAbstraction), once per LiDAR frame
       in sequential odometry;
@@ -160,15 +207,19 @@ class DeepCLR(nn.Module):
     * ``encode_register``: one sequential step, encode a new frame and
       register it against the cached previous features;
     * ``forward``: encode template and source as one stacked 2B batch and
-      register.
+      register; returns ``(y_pred, loss)``, the loss from ``loss_module``
+      when the model has one and labels ``y`` are given, else None.
     """
 
     def __init__(self, cloud_features: SetAbstraction, merge: MotionEmbedding,
                  output: OutputSimple, input_dim: int = 4, point_dim: int = 3,
-                 label_type: LabelType = LabelType.POSE3D_DUAL_QUAT):
+                 label_type: LabelType = LabelType.POSE3D_DUAL_QUAT,
+                 loss_module: Optional[nn.Module] = None):
         super().__init__()
         self._cloud_layers = nn.ModuleList([cloud_features])
         self._merge_layers = nn.ModuleList([merge, output])
+        # the reference state dict keeps the loss under ``_loss_layer``
+        self._loss_layer = loss_module
         self.input_dim = input_dim
         self.point_dim = point_dim
         self.label_type = label_type
@@ -184,6 +235,10 @@ class DeepCLR(nn.Module):
     @property
     def output(self) -> OutputSimple:
         return self._merge_layers[1]
+
+    @property
+    def loss_module(self) -> Optional[nn.Module]:
+        return self._loss_layer
 
     def encode(self, points: torch.Tensor, mask: Optional[torch.Tensor] = None,
                aug: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -210,8 +265,10 @@ class DeepCLR(nn.Module):
                 template_mask: Optional[torch.Tensor] = None,
                 source_mask: Optional[torch.Tensor] = None,
                 aug_template: Optional[torch.Tensor] = None,
-                aug_source: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """Pairwise registration of equally padded clouds -> y_pred (B, dim)."""
+                aug_source: Optional[torch.Tensor] = None,
+                y: Optional[torch.Tensor] = None):
+        """Pairwise registration of equally padded clouds -> (y_pred (B, dim),
+        loss or None)."""
         if template.shape != source.shape:
             raise ValueError(f"template {tuple(template.shape)} and source {tuple(source.shape)} "
                              "must be padded to one shape")
@@ -230,4 +287,8 @@ class DeepCLR(nn.Module):
             aug = torch.cat([eye if aug_template is None else aug_template,
                              eye if aug_source is None else aug_source], dim=0)
         feats = self.encode(both, mask, aug)
-        return self.register(feats[:b], feats[b:])
+        y_pred = self.register(feats[:b], feats[b:])
+        loss = None
+        if self.loss_module is not None and y is not None:
+            loss = self.loss_module(y_pred, y)
+        return y_pred, loss

@@ -54,6 +54,8 @@ class SetAbstractionMSG(nn.Module):
         self.radii = tuple(float(r) for r in radii)
         self.mlps = nn.ModuleList([_ScaleMLP(in_dim, m) for m in mlps])
         self.compute_dtype = compute_dtype
+        # the fused op's backward: "kernel" (equality-select) or "argmax"
+        self.backward = "kernel"
 
     @property
     def out_dim(self) -> int:
@@ -81,5 +83,5 @@ class SetAbstractionMSG(nn.Module):
         )
         new_features = ops.ball_mlp_max(
             xyz, new_xyz, weights, biases, radius_cols, features=features, mask=mask,
-            compute_dtype=self.compute_dtype)
+            compute_dtype=self.compute_dtype, backward=self.backward)
         return new_xyz, new_features

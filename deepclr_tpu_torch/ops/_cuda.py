@@ -9,7 +9,10 @@ source is rebuilt and a stale library is never loaded.
 
 Every C entry point launches on the stream it is given and returns
 ``cudaGetLastError()``; :class:`CudaKernel` raises when that is not 0 and
-counts the launches.
+counts the launches.  One library may carry several entry points
+(``fused_sa.cu``: the forward, its argmax variant and the backward), each a
+``CudaKernel`` with its own count.  The sources include no shared header,
+so the hash of the one ``.cu`` file covers all the code of its library.
 """
 from __future__ import annotations
 

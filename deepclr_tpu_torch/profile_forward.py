@@ -15,23 +15,16 @@ import json
 import subprocess
 import time
 
-import numpy as np
 import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from .configs import KITTI_MODEL_CFG
 from .models import build_model
+from .synthetic import kitti_like
 
 PAIRS, POINTS = 16, 16384   # the flagship serving workload
 ITERS, TOP = 5, 20          # traced forwards, kernel rows printed
-
-
-def _clouds(batch: int, n: int, seed: int) -> torch.Tensor:
-    rng = np.random.default_rng(seed)
-    pts = rng.normal(size=(batch, n, 3)).astype(np.float32) * np.array([30.0, 30.0, 2.0], np.float32)
-    extra = rng.uniform(0.0, 1.0, size=(batch, n, 1)).astype(np.float32)
-    return torch.from_numpy(np.concatenate([pts, extra], axis=-1))
 
 
 def _is_kernel(e) -> bool:
@@ -47,8 +40,8 @@ def main() -> None:
     dev = torch.device("cuda")
     with torch.inference_mode():
         model = build_model(KITTI_MODEL_CFG, device=dev, seed=0)
-        t = _clouds(PAIRS, POINTS, 1).to(dev)
-        s = _clouds(PAIRS, POINTS, 2).to(dev)
+        t = torch.from_numpy(kitti_like(PAIRS, POINTS, 1)).to(dev)
+        s = torch.from_numpy(kitti_like(PAIRS, POINTS, 2)).to(dev)
         mask = torch.ones(PAIRS, POINTS, dtype=torch.bool, device=dev)
         for _ in range(3):
             model(t, s, mask, mask)

@@ -10,6 +10,7 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+import yaml
 
 torch = pytest.importorskip("torch")
 
@@ -25,11 +26,13 @@ REPO = Path(__file__).resolve().parents[1]
 def test_port_imports_neither_jax_nor_the_jax_package():
     modules = sorted(m.name for m in pkgutil.walk_packages(deepclr_tpu_torch.__path__, "deepclr_tpu_torch."))
     assert "deepclr_tpu_torch.models.deepclr" in modules and "deepclr_tpu_torch.ops._cuda" in modules
+    assert {"deepclr_tpu_torch.losses", "deepclr_tpu_torch.solver.optimizers", "deepclr_tpu_torch.solver.build",
+            "deepclr_tpu_torch.engine.trainer", "deepclr_tpu_torch.engine.checkpoint"} <= set(modules)
     code = (
         "import importlib, json, sys\n"
         f"for m in {modules!r}: importlib.import_module(m)\n"
         "print(json.dumps(sorted(k for k in sys.modules if k.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'deepclr_tpu'))))\n"
+        "('jax', 'jaxlib', 'flax', 'optax', 'deepclr_tpu'))))\n"
     )
     env = dict(os.environ, PYTHONPATH=str(REPO))
     out = subprocess.run([sys.executable, "-c", code], env=env, cwd=REPO, capture_output=True,
@@ -39,6 +42,15 @@ def test_port_imports_neither_jax_nor_the_jax_package():
 
 def test_flagship_config_is_a_faithful_copy():
     assert configs.KITTI_MODEL_CFG == __graft_entry__.KITTI_MODEL_CFG
+
+
+def test_flagship_training_recipe_is_a_faithful_copy():
+    with open(REPO / "configs" / "training" / "kitti_base.yaml") as f:
+        ref = yaml.safe_load(f)
+    train = configs.KITTI_TRAIN_CFG
+    for section in ("metrics", "optimizer", "scheduler", "logging"):
+        assert train[section] == ref[section], section
+    assert train["data_loader"] == {"batch_size": ref["data_loader"]["batch_size"]} == {"batch_size": 5}
 
 
 def _small_cfg():
@@ -69,7 +81,8 @@ def test_cpu_path_runs_plain_versions_and_counts_no_launch():
     clouds = [rng.normal(size=(200, 4)).astype(np.float32) for _ in range(2)]
     y = ModelInferenceHelper(model, num_points=256).predict_batch(clouds[:1], clouds[1:])
     assert y.shape == (1, 8) and np.isfinite(y).all()
-    assert ops.launch_counts() == {"fps": 0, "min_d2": 0, "fused_sa": 0}
+    assert ops.launch_counts() == {"fps": 0, "min_d2": 0, "fused_sa": 0, "fused_sa_argmax": 0,
+                                   "fused_sa_bwd": 0}
 
 
 def test_init_params_is_seeded():
@@ -86,7 +99,7 @@ def test_init_params_is_seeded():
 @pytest.mark.parametrize("change", [
     ("params", "presorted", True),
     ("params", "fused", False),
-    ("params", "loss", {"name": "TransformLoss"}),
+    ("params", "batch_norm", True),
     ("merge", "k", 0),
 ])
 def test_build_rejects_configs_outside_the_slice(change):
@@ -96,3 +109,28 @@ def test_build_rejects_configs_outside_the_slice(change):
     section[key] = value
     with pytest.raises(NotImplementedError):
         build_model(cfg, device="cpu")
+
+
+def _dropout_cfg():
+    cfg = _small_cfg()
+    cfg["params"]["dropout"] = 0.5
+    return cfg
+
+
+def test_dropout_config_builds_and_serves_as_without_dropout():
+    """Dropout acts only in training, so a dropout config serves exactly as
+    the same config without it."""
+    rng = np.random.default_rng(1)
+    clouds = [rng.normal(size=(200, 4)).astype(np.float32) for _ in range(2)]
+    ys = [ModelInferenceHelper(build_model(cfg, device="cpu", seed=2), num_points=256)
+          .predict_batch(clouds[:1], clouds[1:]) for cfg in (_dropout_cfg(), _small_cfg())]
+    assert np.array_equal(ys[0], ys[1])
+
+
+def test_train_step_rejects_dropout():
+    from deepclr_tpu_torch.engine import make_train_step
+
+    model = build_model(_dropout_cfg(), device="cpu")
+    opt = torch.optim.SGD(model.parameters(), lr=0.0)
+    with pytest.raises(NotImplementedError, match="dropout"):
+        make_train_step(model, opt, lambda y_pred, y: y_pred.sum(), {})

@@ -101,7 +101,9 @@ def test_deepclr_forward_matches_jax(pair):
     aug[:, :3, 3] = [0.3, -0.2, 0.1]
     ref = np.asarray(jmodel.apply(variables, t, s, None, mask, aug, None)[0])
     with torch.inference_mode():
-        got = model(_t(t), _t(s), None, _t(mask), _t(aug), None).numpy()
+        got, loss = model(_t(t), _t(s), None, _t(mask), _t(aug), None)
+    assert loss is None  # no loss module, no labels
+    got = got.numpy()
     assert got.shape == ref.shape == (B, 8)
     np.testing.assert_allclose(got, ref, atol=_TOL[dtype], rtol=0)
 
