@@ -10,12 +10,16 @@ Phases, in order; any failure raises and exits non-zero:
 3. kernels vs plain: each CUDA kernel against its plain PyTorch twin on the
    card at full width (4 clouds x 16384 points -> 1024 centres, one cloud
    with a masked tail, one all masked), in float32 and bfloat16: FPS indices
-   equal, min-d^2 values equal, fused set abstraction within 1e-5 of
+   equal (also at the rule's cluster size for 1, 10 and 32 clouds, and at
+   every cluster size 1-16 on a grid-tie cloud with a masked tail and an
+   all-masked cloud), min-d^2 values equal, fused set abstraction within 1e-5 of
    max(1, max|plain|) (the twin rounds where the kernel rounds); the argmax
    forward's values equal the forward kernel's bit for bit and its indices
    equal the twin's; the backward kernel, fed the forward kernel's output,
    within 1e-4 of each result's scale of the twin fed the plain forward's
-   (the kernel sums with atomics, in a varying order);
+   (the kernel sums with atomics, in a varying order), on these clouds and
+   on a dense-ball case (4096 points in a 4 m cube, ~33 points a 0.5 m
+   ball);
 4. serving path: the flagship KITTI model (random weights from seed 0)
    through ModelInferenceHelper.predict_batch on 16 pairs of 16384-point
    KITTI-like clouds, and 3 sequential frames through encode_register;
@@ -34,8 +38,10 @@ Phases, in order; any failure raises and exits non-zero:
    2e-3 of each gradient's scale;
 6. timing with CUDA events (medians after warm-up): forward pairs/s at
    16 x 16384, encode and register time, one sequential step (B = 1), the
-   train micro-step and train pairs/s at 5 x 16384, and each kernel's time,
-   its plain twin's time and its bound at its path's shapes.
+   train micro-step and train pairs/s at 5 x 16384, and each kernel's time
+   (back-to-back launches), its plain twin's time and its bound at its
+   path's shapes; FPS also at 1 and 10 clouds and at cluster size 1, and
+   B4 (and B2) on the dense case beside the sparse one.
 
 Prints JSON lines; the one before the last two lists the kernels, then the
 card's name and power limit, and the last is {"ok": true, "device": {...}}.
@@ -66,6 +72,7 @@ TPU_KERNELS = {
 }
 SERVING_KERNELS = ("fps", "min_d2", "fused_sa")
 TRAIN_KERNELS = ("fps", "min_d2", "fused_sa", "fused_sa_bwd")
+FPS_BATCHES = (32, 10, 1)     # FPS's path shapes: serving encode (2B), train encode (2B), sequential step
 
 
 def emit(obj):
@@ -86,6 +93,21 @@ def cuda_ms(fn, reps):
     return statistics.median(times)
 
 
+def kernel_ms(fn, reps):
+    """A kernel's time in ms: one pair of CUDA events around ``reps``
+    back-to-back calls after a warm-up call, over ``reps``, so the host's
+    preparation of a call overlaps the device's work on the one before."""
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
 def sa_operands(model, points, mask):
     """The first set-abstraction stage's steps up to the fused op, as
     SetAbstractionMSG.forward takes them: Morton sort, FPS, gather, centre
@@ -101,6 +123,14 @@ def sa_operands(model, points, mask):
         [[m.dense(i).bias for i in range(m.depth)] for m in sa.mlps], sa.radii)
     return dict(xyz=xyz.contiguous(), feats=feats.contiguous(), mask=mask, npoint=sa.npoint,
                 centers=centers.contiguous(), weights=weights, biases=biases, radius=radius)
+
+
+def dense_clouds(b, n=4096, side=4.0, seed=50):
+    """Points uniform in a cube of ``side`` m (xyz + intensity): 4096 in 4 m
+    put ~33 points in a 0.5 m ball and ~270 in a 1 m ball."""
+    rng = np.random.default_rng(seed)
+    return np.concatenate([rng.uniform(0.0, side, size=(b, n, 3)), rng.uniform(size=(b, n, 1))],
+                          -1).astype(np.float32)
 
 
 def fused_operands(op, dtype):
@@ -128,6 +158,7 @@ def check_kernels(model, dev):
     ref = fps._fps_plain(op["xyz"], op["npoint"], op["mask"])
     if not torch.equal(got, ref):
         raise AssertionError(f"fps: {(got != ref).sum().item()} indices differ from the plain version")
+    check_fps(dev)
     errs["fps"] = 0.0
 
     pts4 = fused_sa._pack_points(op["xyz"], op["mask"])
@@ -182,8 +213,66 @@ def check_kernels(model, dev):
                 raise AssertionError(f"fused_sa_bwd {dtype} {name}: max |diff| {err} > 1e-4 of the scale {scale}")
         if got[2][1].abs().max().item() == 0.0 or got[0][3].any() or got[1][3].any():
             raise AssertionError(f"fused_sa_bwd {dtype}: no winner selected, or a gradient in the all-masked cloud")
-        errs["fused_sa_bwd"] = worst
+        errs["fused_sa_bwd"] = max(worst, check_bwd_dense(model, dev, dtype))
     return errs
+
+
+def check_fps(dev):
+    """FPS indices equal the plain version's at the rule's cluster size for
+    the path's batches, and at every cluster size on a grid-tie cloud (equal
+    distances everywhere) with a masked tail and an all-masked cloud."""
+    from deepclr_tpu_torch.ops import fps
+    from deepclr_tpu_torch.synthetic import kitti_like
+
+    chosen = {}
+    for b in FPS_BATCHES:
+        xyz = torch.from_numpy(kitti_like(b, NPTS, seed=30 + b)[..., :3].copy()).to(dev)
+        mask = torch.ones(b, NPTS, dtype=torch.bool, device=dev)
+        if b > 1:
+            mask[-1, NPTS // 2:] = False  # a masked tail in the batch's last cloud
+        chosen[b] = fps.device_cluster_size(dev, b, NPTS)
+        got, ref = fps.furthest_point_sample(xyz, 1024, mask), fps._fps_plain(xyz, 1024, mask)
+        if not torch.equal(got, ref):
+            raise AssertionError(f"fps at B={b}, cluster {chosen[b]}: {(got != ref).sum().item()} indices differ")
+    xyz = torch.from_numpy(np.round(kitti_like(3, NPTS, seed=40)[..., :3] / 4)).to(dev)
+    mask = torch.ones(3, NPTS, dtype=torch.bool, device=dev)
+    mask[0, NPTS * 5 // 8:] = False
+    mask[2] = False
+    ref = fps._fps_plain(xyz, 1024, mask)
+    for c in fps.CLUSTER_SIZES:
+        got = fps.furthest_point_sample(xyz, 1024, mask, cluster=c)
+        if not torch.equal(got, ref):
+            raise AssertionError(f"fps at cluster {c} on the grid-tie clouds: {(got != ref).sum().item()} differ")
+    emit({"check": "fps", "points": NPTS, "npoint": 1024, "cluster_by_batch": chosen,
+          "grid_tie_clusters_equal": list(fps.CLUSTER_SIZES)})
+
+
+def check_bwd_dense(model, dev, dtype):
+    """B4 on the dense-ball case (4 clouds x 4096 points in a 4 m cube, the
+    model's first SA stage) within 1e-4 of each result's scale of its twin;
+    returns the largest absolute error."""
+    from deepclr_tpu_torch.ops import fused_sa
+
+    pts = torch.from_numpy(dense_clouds(4)).to(dev)
+    op = sa_operands(model, pts, torch.ones(pts.shape[:2], dtype=torch.bool, device=dev))
+    sa_op, active = fused_operands(op, dtype)
+    pairs = pair_stats(sa_op)[0]
+    out = fused_sa.fused_sa_core(sa_op, active)
+    g = torch.randn(out.shape, generator=torch.Generator().manual_seed(5)).to(dev)
+    got = fused_sa.fused_sa_bwd(sa_op, active, out, g)
+    ref = fused_sa._fused_sa_bwd_plain(sa_op, fused_sa._fused_sa_plain(sa_op), g)
+    worst = 0.0
+    for name, x, y in zip(("da", "dbc", "dw2", "dw3", "db2", "db3"), [got[0], got[1], *got[2], *got[3]],
+                          [ref[0], ref[1], *ref[2], *ref[3]]):
+        scale = max(1e-3, y.abs().max().item())
+        err = (x - y).abs().max().item()
+        worst = max(worst, err)
+        if not err <= 1e-4 * scale:
+            raise AssertionError(f"fused_sa_bwd dense {dtype} {name}: max |diff| {err} > 1e-4 of the scale {scale}")
+    emit({"check": "fused_sa_bwd_dense", "dtype": str(dtype), "clouds": 4, "points": 4096,
+          "in_radius_pairs": pairs, "in_radius_pairs_per_centre": pairs / (4 * op["npoint"]),
+          "max_abs_err": worst, "tolerance_of_scale": 1e-4})
+    return worst
 
 
 def run_main_path(model, dev):
@@ -390,19 +479,26 @@ def time_path(model, dev, templates, sources):
     pts4, centers = sa_op.pts4, sa_op.centers
     min_d2 = fused_sa.block_min_d2(pts4, centers)
     pairs, points_hit = pair_stats(sa_op)
+    fps_shapes = {}
+    for fb in FPS_BATCHES:
+        x, m = op["xyz"][:fb], op["mask"][:fb]
+        c = fps.device_cluster_size(dev, fb, n)
+        fps_shapes[fb] = {"cluster": c, "ms": kernel_ms(lambda: fps.furthest_point_sample(x, p, m, cluster=c), 20),
+                          "ms_cluster_1": kernel_ms(lambda: fps.furthest_point_sample(x, p, m, cluster=1), 20),
+                          "bound_ms": bound(nbytes(x, m) + fb * p * 4, 9.0 * fb * (p - 1) * n)[0]}
     kernels = {
         "fps": dict(
-            ms=cuda_ms(lambda: fps.furthest_point_sample(op["xyz"], p, op["mask"]), reps=10),
+            ms=kernel_ms(lambda: fps.furthest_point_sample(op["xyz"], p, op["mask"]), 20),
             plain_ms=cuda_ms(lambda: fps._fps_plain(op["xyz"], p, op["mask"]), reps=3),
             # 3 sub, 3 mul, 2 add, 1 min per point and step; xyz + mask in, indices out
             bound=bound(nbytes(op["xyz"], op["mask"]) + b * p * 4, 9.0 * b * (p - 1) * n)),
         "min_d2": dict(
-            ms=cuda_ms(lambda: fused_sa.block_min_d2(pts4, centers), reps=20),
+            ms=kernel_ms(lambda: fused_sa.block_min_d2(pts4, centers), 50),
             plain_ms=cuda_ms(lambda: fused_sa._block_min_d2_plain(pts4, centers), reps=3),
             # 3 sub, 3 mul, 3 add, 1 min per pair
             bound=bound(nbytes(pts4, centers, min_d2), 10.0 * b * n * p)),
         "fused_sa": dict(
-            ms=cuda_ms(lambda: fused_sa.fused_sa_core(sa_op, active), reps=20),
+            ms=kernel_ms(lambda: fused_sa.fused_sa_core(sa_op, active), 50),
             plain_ms=cuda_ms(lambda: fused_sa._fused_sa_plain(sa_op), reps=3),
             bound=bound(*sa_work(sa_op, active, pairs, points_hit))),
     }
@@ -411,6 +507,7 @@ def time_path(model, dev, templates, sources):
         "encode_2B_ms": encode_ms, "register_B_ms": register_ms, "sequential_step_ms": step_ms,
         "batch_pairs": BATCH, "points": NPTS, "compute_dtype": str(dtype),
         "in_radius_pairs": pairs, "in_radius_pairs_per_centre": pairs / (b * p), "points_in_a_ball": points_hit,
+        "fps_by_batch": fps_shapes,
         "culling_chunks": min_d2.shape[1], "visited_block_share": active.float().mean().item(),
     }
     return metrics, kernels
@@ -446,32 +543,57 @@ def time_train(dev, model, opt, loss_fn, metric_fns, batches):
     g = torch.randn_like(out)
     pairs, points_hit = pair_stats(sa_op)
     byts, f32_ops, cd_ops = sa_work(sa_op, active, pairs, points_hit)
-    recompute_bytes = sa_work(sa_op, active, pairs, points_hit, write_out=False)[0]
-    b, n, h1 = sa_op.a.shape
-    p, h3 = out.shape[1:]
-    dw_bytes = 4 * sum(w.numel() for w in (*sa_op.tail_w, *sa_op.tail_b))  # float32 dW and db
+    b, p, h3 = out.shape
     kernels = {
         "fused_sa_argmax": dict(
-            ms=cuda_ms(lambda: fused_sa.fused_sa_argmax(sa_op, active), reps=20),
+            ms=kernel_ms(lambda: fused_sa.fused_sa_argmax(sa_op, active), 50),
             plain_ms=cuda_ms(lambda: fused_sa._fused_sa_argmax_plain(sa_op), reps=3),
             # the forward's work, plus the int32 winner per (centre, column)
             bound=bound(byts + b * p * h3 * 4, f32_ops, cd_ops)),
         "fused_sa_bwd": dict(
-            ms=cuda_ms(lambda: fused_sa.fused_sa_bwd(sa_op, active, out, g), reps=20),
+            ms=kernel_ms(lambda: fused_sa.fused_sa_bwd(sa_op, active, out, g), 50),
             plain_ms=cuda_ms(lambda: fused_sa._fused_sa_bwd_plain(sa_op, out, g), reps=3),
-            # the forward's recompute (reads only: out is read here, not
-            # written) plus the tail's backward multiply-adds (dW and the
-            # input delta per layer: twice the forward's); g and out read,
-            # da (every row), dbc, dW and db written
-            bound=bound(recompute_bytes + nbytes(out, g) + b * n * h1 * 4 + b * p * h1 * 4 + dw_bytes,
-                        f32_ops, 3.0 * cd_ops)),
+            bound=bwd_bound(sa_op, active, out, g, pairs, points_hit)),
     }
-    metrics = {"train_micro_step_ms": micro_ms, "train_micro_step_ms_each": times,
+    dense = bwd_dense_timing(model, dev)
+    metrics = {"train_micro_step_ms": micro_ms, "train_micro_step_ms_each": times, "bwd_dense": dense,
                "train_pairs_per_s": TRAIN_BATCH / (micro_ms / 1e3), "train_batch_pairs": TRAIN_BATCH,
                "train_accumulation_steps": 2, "train_in_radius_pairs": pairs,
                "train_in_radius_pairs_per_centre": pairs / (b * p),
                "train_visited_block_share": active.float().mean().item()}
     return metrics, kernels
+
+
+def bwd_bound(sa_op, active, out, g, pairs, points_hit):
+    """B4's bound: the forward's recompute (reads only: out is read here,
+    not written) plus the tail's backward multiply-adds (dW and the input
+    delta per layer: twice the forward's); g and out read, da (every row),
+    dbc, dW and db written."""
+    byts, f32_ops, cd_ops = sa_work(sa_op, active, pairs, points_hit, write_out=False)
+    b, n, h1 = sa_op.a.shape
+    p = out.shape[1]
+    dw_bytes = 4 * sum(w.numel() for w in (*sa_op.tail_w, *sa_op.tail_b))  # float32 dW and db
+    return bound(byts + nbytes(out, g) + b * n * h1 * 4 + b * p * h1 * 4 + dw_bytes, f32_ops, 3.0 * cd_ops)
+
+
+def bwd_dense_timing(model, dev):
+    """B4 and B2 on the dense case at the train path's cloud count (10
+    clouds x 4096 points in a 4 m cube)."""
+    from deepclr_tpu_torch.ops import fused_sa
+
+    with torch.no_grad():
+        pts = torch.from_numpy(dense_clouds(2 * TRAIN_BATCH)).to(dev)
+        op = sa_operands(model, pts, torch.ones(pts.shape[:2], dtype=torch.bool, device=dev))
+        sa_op, active = fused_operands(op, model.cloud_features._sa0.compute_dtype)
+        out = fused_sa.fused_sa_core(sa_op, active)
+        g = torch.randn_like(out)
+        pairs, points_hit = pair_stats(sa_op)
+        bwd_ms = kernel_ms(lambda: fused_sa.fused_sa_bwd(sa_op, active, out, g), 10)
+        fwd_ms = kernel_ms(lambda: fused_sa.fused_sa_core(sa_op, active), 10)
+    bound_ms, bound_by = bwd_bound(sa_op, active, out, g, pairs, points_hit)
+    return {"clouds": 2 * TRAIN_BATCH, "points": 4096, "in_radius_pairs": pairs,
+            "in_radius_pairs_per_centre": pairs / (2 * TRAIN_BATCH * op["npoint"]), "fused_sa_bwd_ms": bwd_ms,
+            "fused_sa_bwd_bound_ms": bound_ms, "bound_by": bound_by, "fused_sa_ms": fwd_ms}
 
 
 def main():

@@ -24,6 +24,7 @@ from typing import Any, Callable, Dict, Optional
 import torch
 from torch import nn
 
+from ..models.deepclr import OutputSimple
 from .checkpoint import Checkpointer, load_checkpoint
 
 __all__ = ["BATCH_KEYS", "TrainState", "create_train_state", "make_train_step", "run_trainer",
@@ -135,13 +136,14 @@ def make_train_step(model: nn.Module, optimizer, loss_fn: Callable, metric_fns: 
     The metric EMAs (``loss`` = loss / k, ``loss_fn`` = loss, and each
     metric) take the first micro-step's values as they are, then
     ema * alpha + (1 - alpha) * value.  With ``use_model_loss`` the loss is
-    the model's own loss module's.  Raises NotImplementedError for a model
-    whose pose head has dropout (keep probability < 1), which is not ported.
+    the model's own loss module's.  The step puts the model in training
+    mode, so a pose head with dropout (keep probability < 1) drops out,
+    with masks seeded from the model's seed and ``state.step``: a resumed
+    run draws the masks an uninterrupted one would.
     """
-    if getattr(getattr(model, "output", None), "dropout_keep", 1.0) < 1.0:
-        raise NotImplementedError("training with dropout (keep probability < 1) is not ported")
     k = int(accumulation_steps)
     device = next(model.parameters()).device
+    heads = [m for m in model.modules() if isinstance(m, OutputSimple)]
 
     def train_step(state: TrainState, batch: Dict[str, Any], lr: float) -> Dict[str, torch.Tensor]:
         if state.param_ema is not None and not weight_ema_decay > 0.0:
@@ -150,6 +152,8 @@ def make_train_step(model: nn.Module, optimizer, loss_fn: Callable, metric_fns: 
             group["lr"] = float(lr)
         b = _to_device(batch, device)
         model.train()
+        for head in heads:
+            head.seed_dropout(state.step)
         y_pred, model_loss = model(b["template"], b["source"], b.get("template_mask"),
                                    b.get("source_mask"), b.get("aug_template"), b.get("aug_source"),
                                    y=b["y"])

@@ -55,7 +55,8 @@ def build_model(model_cfg, device="cuda", seed: int = 0) -> DeepCLR:
     """Build DeepCLR from a model config dict (input_dim, point_dim,
     label_type, model_type, params{batch_norm, dropout, compute_dtype,
     cloud_features, merge, output[, loss]}), initialize it from ``seed`` and
-    put it in eval mode on ``device``.  Runs on CUDA unless ``device='cpu'``;
+    put it in eval mode on ``device``.  ``seed`` also seeds the pose head's
+    dropout generator.  Runs on CUDA unless ``device='cpu'``;
     raises when CUDA is asked for and absent."""
     device = resolve_device(device)
     strict_float32()
@@ -77,7 +78,7 @@ def build_model(model_cfg, device="cuda", seed: int = 0) -> DeepCLR:
                             **_section(params, "merge", "MotionEmbedding"), **common)
     mlp_out = merge.mlp.dense(len(merge.mlp) - 1).weight.shape[0]
     output = OutputSimple(point_dim + mlp_out, label_type=label_type,
-                          dropout_keep=float(params.get("dropout", 1.0)),
+                          dropout_keep=float(params.get("dropout", 1.0)), dropout_seed=seed,
                           **_section(params, "output", "OutputSimple"), **common)
     model = DeepCLR(cloud_features, merge, output, input_dim=input_dim, point_dim=point_dim,
                     label_type=label_type, loss_module=_loss_module(params.get("loss"), label_type))

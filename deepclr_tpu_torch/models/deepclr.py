@@ -129,25 +129,56 @@ class OutputSimple(nn.Module):
     (== mlp[-1]), not a layer.  Label-specific activations keep the rotation
     bounded: for dual quaternions sigmoid on the real scalar part and tanh
     on the real vector part; the pose Dense runs in float32.
-    ``dropout_keep`` < 1 is the reference's training-time dropout; inference
-    does not use it, and the train step refuses it (not ported)."""
+
+    ``dropout_keep`` < 1 is the reference's dropout (``layers.py`` MLP with
+    ``dropout_last=True``): in training mode, inverted dropout after the
+    ReLU of every ``linear`` layer, the last one included; an element is
+    kept with probability ``dropout_keep`` and scaled by 1/``dropout_keep``.
+    The masks come from the head's own ``torch.Generator`` on its device,
+    never from the global generator.  ``seed_dropout(step)`` seeds it from
+    (``dropout_seed``, step), as the reference folds the step into its key,
+    so a run resumed at a step draws the masks an uninterrupted run draws
+    there; the train step calls it before every forward.  Eval mode drops
+    nothing."""
 
     def __init__(self, in_dim: int, mlp: Sequence[int], linear: Sequence[int],
                  label_type: LabelType, batch_norm: bool = False, dropout_keep: float = 1.0,
-                 compute_dtype=torch.float32):
+                 compute_dtype=torch.float32, dropout_seed: int = 0):
         super().__init__()
         if batch_norm:
             raise NotImplementedError("batch_norm in OutputSimple is not ported")
         self.label_type = label_type
         self.dropout_keep = float(dropout_keep)
+        self.dropout_seed = int(dropout_seed)
+        self._dropout_gen: Optional[torch.Generator] = None
         self.conv = MLP(in_dim, mlp, compute_dtype)
         self.linear = MLP(linear[0], linear[1:], compute_dtype)
         self.output = Dense(linear[-1], label_type.dim, bias_value=label_type.bias)
 
+    def seed_dropout(self, step: int) -> None:
+        """Seed the masks of the next training forwards from
+        (``dropout_seed``, ``step``)."""
+        dev = self.output.weight.device
+        if self._dropout_gen is None or self._dropout_gen.device != dev:
+            self._dropout_gen = torch.Generator(device=dev)
+        self._dropout_gen.manual_seed((self.dropout_seed * 2**32 + int(step)) % 2**64)
+
+    def _dropout(self, h: torch.Tensor) -> torch.Tensor:
+        if self._dropout_gen is None or self._dropout_gen.device != h.device:
+            self.seed_dropout(0)
+        keep = torch.rand(h.shape, generator=self._dropout_gen, device=h.device) < self.dropout_keep
+        return torch.where(keep, h / self.dropout_keep, torch.zeros_like(h))
+
+    def features(self, x: torch.Tensor) -> torch.Tensor:
+        """x (B, P, D) -> the ``linear`` stack's output (B, linear[-1]) in the
+        compute dtype, dropped out in training mode."""
+        h = torch.amax(self.conv(x), dim=-2)
+        drop = self.training and self.dropout_keep < 1.0
+        return self.linear(h, self._dropout if drop else None)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """x (B, P, D) -> (B, label_type.dim) float32."""
-        h = torch.amax(self.conv(x), dim=-2)
-        h = self.linear(h)
+        h = self.features(x)
         y = self.output(h.float(), torch.float32)
         if self.label_type == LabelType.POSE3D_QUAT:
             y = torch.cat([y[:, :3], torch.sigmoid(y[:, 3:4]), torch.tanh(y[:, 4:])], dim=1)

@@ -13,7 +13,7 @@ Dense at ``_sequential.{i}._sequential.0``.
 from __future__ import annotations
 
 import math
-from typing import Optional, Sequence
+from typing import Callable, Optional, Sequence
 
 import torch
 from torch import nn
@@ -65,7 +65,8 @@ class _Layer(nn.Module):
 
 class MLP(nn.Module):
     """Stack of Dense + ReLU layers: (..., in_dim) -> (..., widths[-1]) in
-    ``compute_dtype``.  Dropout is not part of inference and is left out."""
+    ``compute_dtype``.  ``forward``'s ``post``, when given, follows every
+    layer's ReLU: the pose head's dropout (``OutputSimple``)."""
 
     def __init__(self, in_dim: int, widths: Sequence[int], compute_dtype=torch.float32):
         super().__init__()
@@ -79,8 +80,11 @@ class MLP(nn.Module):
     def __len__(self) -> int:
         return len(self._sequential)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                post: Optional[Callable[[torch.Tensor], torch.Tensor]] = None) -> torch.Tensor:
         x = x.to(self.compute_dtype)
         for i in range(len(self)):
             x = torch.relu(self.dense(i)(x, self.compute_dtype))
+            if post is not None:
+                x = post(x)
         return x

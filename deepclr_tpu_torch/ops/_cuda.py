@@ -26,7 +26,7 @@ from typing import Dict
 
 import torch
 
-__all__ = ["CudaKernel", "build_all", "check_cuda", "launch_counts", "reset_launch_counts"]
+__all__ = ["CudaKernel", "build_all", "c_function", "check_cuda", "launch_counts", "reset_launch_counts"]
 
 _PKG = Path(__file__).resolve().parents[1]
 _CSRC = _PKG / "csrc"
@@ -92,6 +92,15 @@ def _library(name: str) -> ctypes.CDLL:
     if name not in _libs:
         _libs[name] = ctypes.CDLL(str(build_all((name,))[name]))
     return _libs[name]
+
+
+def c_function(source: str, symbol: str, argtypes):
+    """A C entry point of a csrc/ library that launches nothing (a query),
+    returning a cudaError_t code; no launch count."""
+    fn = getattr(_library(source), symbol)
+    fn.argtypes = list(argtypes)
+    fn.restype = ctypes.c_int
+    return fn
 
 
 class CudaKernel:

@@ -125,12 +125,3 @@ def test_dropout_config_builds_and_serves_as_without_dropout():
     ys = [ModelInferenceHelper(build_model(cfg, device="cpu", seed=2), num_points=256)
           .predict_batch(clouds[:1], clouds[1:]) for cfg in (_dropout_cfg(), _small_cfg())]
     assert np.array_equal(ys[0], ys[1])
-
-
-def test_train_step_rejects_dropout():
-    from deepclr_tpu_torch.engine import make_train_step
-
-    model = build_model(_dropout_cfg(), device="cpu")
-    opt = torch.optim.SGD(model.parameters(), lr=0.0)
-    with pytest.raises(NotImplementedError, match="dropout"):
-        make_train_step(model, opt, lambda y_pred, y: y_pred.sum(), {})

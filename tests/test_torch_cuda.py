@@ -43,20 +43,46 @@ def _mask(b, n):
     return mask
 
 
-# n covers every per-thread template of csrc/fps.cu: 1, 2, 4, 8 and 16 points
-@pytest.mark.parametrize("n", [100, 1000, 2000, 3000, 6000, 16384])
+# n covers every per-thread template of csrc/fps.cu (4, 8 and 16 points) at
+# C = 1 and ragged index ranges at every C; None is cluster_size's choice
+@pytest.mark.parametrize("n", [100, 1000, 6000, 16384])
 @pytest.mark.parametrize("grid", [False, True])
-def test_fps_kernel_bit_exact(dev, n, grid):
+@pytest.mark.parametrize("cluster", [None, 1, 2, 4, 8, 16])
+def test_fps_kernel_bit_exact(dev, n, grid, cluster):
     xyz, mask = _cloud(3, n, seed=n, grid=grid), _mask(3, n)
     npoint = min(n, 256)
-    got = ops.furthest_point_sample(xyz.to(dev), npoint, mask.to(dev))
+    got = ops.furthest_point_sample(xyz.to(dev), npoint, mask.to(dev), cluster=cluster)
     ref = fps._fps_plain(xyz, npoint, mask)
     np.testing.assert_array_equal(got.cpu().numpy(), ref.numpy())
+
+
+# the path's shapes: the sequential step (1 cloud), the train encode (10)
+# and the serving encode (32), 16384 -> 1024, at the rule's cluster size
+@pytest.mark.parametrize("b", [1, 10, 32])
+def test_fps_kernel_bit_exact_at_path_shapes(dev, b):
+    xyz = _cloud(b, 16384, seed=b).to(dev)
+    mask = torch.ones(b, 16384, dtype=torch.bool, device=dev)
+    if b > 1:
+        mask[0, 12000:] = False
+    counts = dict(ops.launch_counts())
+    got = ops.furthest_point_sample(xyz, 1024, mask)
+    assert ops.launch_counts()["fps"] == counts["fps"] + 1
+    assert torch.equal(got, fps._fps_plain(xyz, 1024, mask))
+
+
+def test_fps_cluster_rule_fits_the_card(dev):
+    """The rule's choice at the path's shapes is a cluster size the card
+    holds B of at once."""
+    for b in (1, 10, 32):
+        c = fps.device_cluster_size(dev, b, 16384)
+        assert c in fps.CLUSTER_SIZES and fps._max_active_clusters(dev, 16384, c) >= b
 
 
 def test_fps_kernel_rejects_oversized_clouds(dev):
     with pytest.raises(ValueError, match="exceeds"):
         ops.furthest_point_sample(torch.zeros(1, fps.FPS_MAX_POINTS + 1, 3, device=dev), 8)
+    with pytest.raises(ValueError, match="exceeds"):
+        ops.furthest_point_sample(torch.zeros(1, fps.MAX_POINTS_PER_CTA + 1, 3, device=dev), 8, cluster=1)
 
 
 @pytest.mark.parametrize("n,p", [(16384, 1024), (1000, 300)])
@@ -106,11 +132,19 @@ def test_fused_sa_kernel_rejects_uncompiled_widths(dev):
                          radius, compute_dtype=torch.float32)
 
 
-def _sa_operands(n, p, dtype, seed, dev, tie_at_zero=False):
+def _dense_cloud(b, n, side, seed):
+    """Points uniform in a cube of ``side`` m: 4096 in 4 m hold ~33 points
+    a 0.5 m ball and ~270 a 1 m ball."""
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(rng.uniform(0.0, side, size=(b, n, 3)).astype(np.float32))
+
+
+def _sa_operands(n, p, dtype, seed, dev, tie_at_zero=False, dense=False):
     """Prepared fused-SA operands of 3 sorted clouds (one with a masked
     tail, one all masked) on ``dev``; with ``tie_at_zero`` the first 8
-    output columns have a bias so negative that every value is 0."""
-    pts = _cloud(3, n, seed=seed) / 10
+    output columns have a bias so negative that every value is 0; with
+    ``dense`` the points fill a 4 m cube (tens of points a ball)."""
+    pts = _dense_cloud(3, n, 4.0, seed) if dense else _cloud(3, n, seed=seed) / 10
     xyz = ops.spatial_sort(pts)[0]
     centers = xyz[:, :: n // p][:, :p].contiguous()
     feats = torch.rand(3, n, 1, generator=torch.Generator().manual_seed(seed + 1))
@@ -150,11 +184,11 @@ def test_fused_sa_argmax_kernel_matches_plain(dev, n, p, dtype, tie_at_zero):
 
 # The kernel sums dW, db, dbc and da with atomics, in an order that changes
 # from run to run; 1e-4 of each result's scale bounds that float32 spread.
-@pytest.mark.parametrize("n,p", [(4096, 512), (1000, 40)])
+@pytest.mark.parametrize("n,p,dense", [(4096, 512, False), (1000, 40, False), (4096, 512, True)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("tie_at_zero", [False, True])
-def test_fused_sa_bwd_kernel_matches_plain(dev, n, p, dtype, tie_at_zero):
-    op, active = _sa_operands(n, p, dtype, 9, dev, tie_at_zero)
+def test_fused_sa_bwd_kernel_matches_plain(dev, n, p, dense, dtype, tie_at_zero):
+    op, active = _sa_operands(n, p, dtype, 9, dev, tie_at_zero, dense)
     g = torch.randn(op.bc.shape[:2] + (64,), generator=torch.Generator().manual_seed(10)).to(dev)
     got = fused_sa.fused_sa_bwd(op, active, fused_sa.fused_sa_core(op, active), g)
     ref = fused_sa._fused_sa_bwd_plain(op, fused_sa._fused_sa_plain(op), g)
@@ -179,10 +213,13 @@ def test_fused_sa_backward_kernels_reject_uncompiled_widths(dev):
 
 
 @pytest.mark.parametrize("backward", ["kernel", "argmax"])
-def test_function_gradients_on_card_match_cpu(dev, backward):
+@pytest.mark.parametrize("dense", [False, True])
+def test_function_gradients_on_card_match_cpu(dev, backward, dense):
     """ball_mlp_max's autograd Function: every input's gradient on the card
-    (B5 / B2 + B4 kernels) against the CPU (plain twins)."""
-    xyz = ops.spatial_sort(_cloud(2, 2048, seed=11) / 10)[0]
+    (B5 / B2 + B4 kernels) against the CPU (plain twins); ``dense`` puts
+    ~30 points in a 0.5 m ball."""
+    pts = _dense_cloud(2, 2048, 3.2, seed=11) if dense else _cloud(2, 2048, seed=11) / 10
+    xyz = ops.spatial_sort(pts)[0]
     feats = torch.rand(2, 2048, 1, generator=torch.Generator().manual_seed(12))
     mask = _mask(2, 2048)
     w, b, radius = _bundle((16, 16, 32), seed=13)
@@ -204,6 +241,48 @@ def test_function_gradients_on_card_match_cpu(dev, backward):
             assert not any(launched.values())
     for g_card, g_cpu in zip(grads["cuda"], grads["cpu"]):
         _assert_close_to_scale(g_card, g_cpu, 1e-4, "grad")
+
+
+def test_dropout_trains_on_the_card(dev):
+    """The pose head's dropout on the card: each ``linear`` output 0 or
+    exactly eval's / keep, the masks set by (seed, step), and a micro-step
+    of make_train_step leaves finite gradients."""
+    cfg = copy.deepcopy(KITTI_MODEL_CFG)
+    cfg["params"]["dropout"] = 0.5
+    cfg["params"]["compute_dtype"] = "float32"
+    cfg["params"]["cloud_features"]["params"]["npoint"] = [64]
+    cfg["params"]["output"]["params"]["linear"] = [1024, 512]  # one layer: its output is one dropout's
+    model = build_model(cfg, device="cuda", seed=14)
+    head = model.output
+    x = torch.randn(4, 64, head.conv.dense(0).weight.shape[1], generator=torch.Generator().manual_seed(15)).to(dev)
+    with torch.no_grad():
+        ev = head.eval().features(x)
+        head.train()
+        head.seed_dropout(3)
+        tr = head.features(x)
+        head.seed_dropout(3)
+        again = head.features(x)
+        head.seed_dropout(4)
+        other = head.features(x)
+    assert tr.is_cuda and torch.equal(tr, again) and not torch.equal(tr, other)
+    assert bool(((tr == 0) | (tr == ev * 2)).all())
+    share = (tr[ev != 0] == 0).float().mean().item()
+    assert abs(share - 0.5) < 5 * np.sqrt(0.25 / int((ev != 0).sum()))
+
+    from deepclr_tpu_torch.configs import KITTI_TRAIN_CFG
+    from deepclr_tpu_torch.engine import create_train_state, make_train_step
+    from deepclr_tpu_torch.losses import make_loss_fn
+    step = make_train_step(model, torch.optim.SGD(model.parameters(), lr=0.0),
+                           make_loss_fn(KITTI_TRAIN_CFG["metrics"]["loss"], "pose3d_dual_quat"), {},
+                           accumulation_steps=2)
+    rng = np.random.default_rng(16)
+    t = np.concatenate([rng.normal(size=(2, 2048, 3)) * [3.0, 3.0, 0.5], rng.uniform(size=(2, 2048, 1))], -1)
+    batch = {"template": t.astype(np.float32), "source": (t + rng.normal(size=t.shape) * 0.01).astype(np.float32),
+             "y": np.tile(np.array([1, 0, 0, 0, 0, 0, 0, 0], np.float32), (2, 1))}
+    assert np.isfinite(float(step(create_train_state(model), batch, 1e-3)["loss"]))
+    grads = {n: p.grad for n, p in model.named_parameters()}
+    assert all(g is not None and g.is_cuda and torch.isfinite(g).all() for g in grads.values())
+    assert all(grads[n].abs().max() > 0 for n in grads if n.startswith("_merge_layers.1.linear"))
 
 
 def test_model_on_card_matches_cpu(dev):

@@ -287,13 +287,14 @@ class _Loader(list):
             yield b
 
 
-def _trainer_run(tmp_path, max_iterations, loader, checkpoint=None):
+def _trainer_run(tmp_path, max_iterations, loader, checkpoint=None, dropout=1.0):
     cfg = copy.deepcopy(KITTI_TRAIN_CFG)
     cfg["optimizer"].update(max_iterations=max_iterations, base_lr=1e-2)
     cfg["logging"].update(log_period=1, checkpoint_period=2, checkpoint_n_saved=2)
     cfg["scheduler"]["params"].update(base_lr=1e-3, max_lr=1e-2, step_size_up=2)
     mcfg = _tiny_cfg()
     mcfg["params"]["cloud_features"]["params"]["npoint"] = [16]
+    mcfg["params"]["dropout"] = dropout
     model = build_model(mcfg, device="cpu", seed=5)
     opt = solver.make_optimizer(cfg, model.parameters())
     state = run_trainer(cfg, model, loader, None, opt, solver.make_schedule(cfg),
@@ -324,6 +325,27 @@ def test_kill_and_resume_gives_the_uninterrupted_params(tmp_path):
     # the ring keeps the last n_saved = 2 regular checkpoints, the latest linked
     assert sorted(p.name for p in (tmp_path / "full").glob("ckpt_[0-9]*.pt")) == ["ckpt_4.pt", "ckpt_6.pt"]
     assert (tmp_path / "full" / "weights.pt").resolve().name == "weights_final_6.pt"
+
+
+def test_kill_and_resume_with_dropout_gives_the_uninterrupted_params(tmp_path):
+    """With dropout 0.5 every micro-step's masks come from (seed, step), so
+    the run resumed after micro-step 3 draws the masks the uninterrupted run
+    drew from micro-step 4 on, and ends with its parameters bit for bit."""
+    batches = [_batch(21, n=256)] * 2
+    full, full_state = _trainer_run(tmp_path / "full", 6, _Loader(batches), dropout=0.5)
+    _trainer_run(tmp_path / "cut", 6, _Loader(batches * 2, interrupt_at=3), dropout=0.5)
+    resumed, state = _trainer_run(tmp_path / "cut", 6, _Loader(batches * 2), dropout=0.5,
+                                  checkpoint=str(tmp_path / "cut" / "ckpt_interrupt_3.pt"))
+    assert state.step == full_state.step == 6
+    ref = full.state_dict()
+    for name, value in resumed.state_dict().items():
+        np.testing.assert_array_equal(value.numpy(), ref[name].numpy(), err_msg=name)
+    for name in full_state.metrics_ema:
+        assert state.metrics_ema[name].item() == full_state.metrics_ema[name].item()
+    # the masks mattered: without dropout the same run ends elsewhere
+    plain, _ = _trainer_run(tmp_path / "plain", 6, _Loader(batches))
+    assert not torch.equal(plain.state_dict()["_merge_layers.1.linear._sequential.0._sequential.0.weight"],
+                           ref["_merge_layers.1.linear._sequential.0._sequential.0.weight"])
 
 
 def test_non_finite_loss_raises_and_writes_an_exception_checkpoint(tmp_path):
