@@ -12,10 +12,14 @@ Phases, in order; any failure raises and exits non-zero:
    with a masked tail, one all masked), in float32 and bfloat16: FPS indices
    equal (also at the rule's cluster size for 1, 10 and 32 clouds, and at
    every cluster size 1-16 on a grid-tie cloud with a masked tail and an
-   all-masked cloud), min-d^2 values equal, fused set abstraction within 1e-5 of
+   all-masked cloud), min-d^2 values equal (alone and from the launch that
+   also writes the culling bitmap), that bitmap equal to cull_bitmap of the
+   min-d^2 wherever a bitmap is made (every case below, phase 6's too),
+   fused set abstraction within 1e-5 of
    max(1, max|plain|) (the twin rounds where the kernel rounds); the argmax
    forward's values equal the forward kernel's bit for bit and its indices
-   equal the twin's; the backward kernel, fed the forward kernel's output,
+   equal the twin's; the backward kernel, fed the forward kernel's output
+   (so its recompute must select that kernel's winners),
    within 1e-4 of each result's scale of the twin fed the plain forward's
    (the kernel sums with atomics, in a varying order), on these clouds and
    on a dense-ball case (4096 points in a 4 m cube, ~33 points a 0.5 m
@@ -40,8 +44,12 @@ Phases, in order; any failure raises and exits non-zero:
    16 x 16384, encode and register time, one sequential step (B = 1), the
    train micro-step and train pairs/s at 5 x 16384, and each kernel's time
    (back-to-back launches), its plain twin's time and its bound at its
-   path's shapes; FPS also at 1 and 10 clouds and at cluster size 1, and
-   B4 (and B2) on the dense case beside the sparse one.
+   path's shapes, and its device time alone (device_ms: the calls queued
+   behind a sleep kernel); FPS also at 1 and 10 clouds and at cluster size 1, and
+   B4 (and B2) on the dense case beside the sparse one; min-d^2 also
+   without the bitmap, and with a second bound at the float32 issue rate;
+   the counts the fused forward's design rests on (kept chunks a tile,
+   in-radius pairs a kept (chunk, tile) block).
 
 Prints JSON lines; the one before the last two lists the kernels, then the
 card's name and power limit, and the last is {"ok": true, "device": {...}}.
@@ -60,7 +68,8 @@ import torch
 BATCH, NPTS = 16, 16384       # the flagship serving workload: 16 pairs of 16384 points
 TRAIN_BATCH = 5               # the flagship training batch: 5 pairs of 16384 points
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet
-F32_OPS_PER_S = 67e12         # float32 outside the tensor cores
+F32_OPS_PER_S = 67e12         # float32 outside the tensor cores (a fused multiply-add counts two)
+F32_ISSUE_PER_S = 33.5e12     # float32 instructions: 132 SMs x 128 lanes x 1.98 GHz
 BF16_OPS_PER_S = 989e12       # dense bf16 tensor cores
 FUSED_SA_PALLAS = "deepclr_tpu/ops/pallas/fused_sa_kernel.py"
 TPU_KERNELS = {
@@ -108,6 +117,28 @@ def kernel_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
+def device_ms(fn, reps):
+    """A kernel's device time in ms: ``reps`` calls queued behind a sleep
+    kernel that outlasts their host work, so they run back to back on the
+    card and the events see no host gap.  (kernel_ms is bound by the
+    wrapper's host work when that is longer than the kernel.)"""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    enqueue_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int((2.0 * enqueue_s + 1e-3) * 2e9))  # cycles at ~2 GHz
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
 def sa_operands(model, points, mask):
     """The first set-abstraction stage's steps up to the fused op, as
     SetAbstractionMSG.forward takes them: Morton sort, FPS, gather, centre
@@ -134,12 +165,27 @@ def dense_clouds(b, n=4096, side=4.0, seed=50):
 
 
 def fused_operands(op, dtype):
-    """Prepared fused-SA operands and their culling bitmap."""
+    """Prepared fused-SA operands and their culling bitmap, from the
+    pre-pass launch that writes both; raises unless that bitmap equals
+    cull_bitmap of its min-d^2."""
     from deepclr_tpu_torch.ops import fused_sa
 
     sa_op = fused_sa.prepare(op["xyz"], op["centers"], op["weights"], op["biases"], op["radius"],
                              op["feats"], op["mask"], dtype)
-    return sa_op, fused_sa.cull_bitmap(fused_sa.block_min_d2(sa_op.pts4, sa_op.centers), sa_op.r2max)
+    min_d2, active = fused_sa.block_min_d2_and_cull(sa_op.pts4, sa_op.centers, sa_op.r2max)
+    ref = fused_sa.cull_bitmap(min_d2, sa_op.r2max)
+    if not torch.equal(active, ref):
+        raise AssertionError(f"min_d2 bitmap: {(active != ref).sum().item()} bytes differ from cull_bitmap")
+    return sa_op, active
+
+
+def culling_counts(sa_op, active, pairs):
+    """Kept (chunk, tile) blocks a tile (mean, max) and in-radius pairs a
+    kept block: the counts the fused forward's schedule rests on."""
+    kept = active.sum(dim=1, dtype=torch.int64)  # (B, tiles)
+    return {"kept_chunks_per_tile_mean": kept.float().mean().item(),
+            "kept_chunks_per_tile_max": int(kept.max()), "chunks": active.shape[1],
+            "in_radius_pairs_per_kept_block": pairs / max(1, int(kept.sum()))}
 
 
 def check_kernels(model, dev):
@@ -162,10 +208,11 @@ def check_kernels(model, dev):
     errs["fps"] = 0.0
 
     pts4 = fused_sa._pack_points(op["xyz"], op["mask"])
-    got = fused_sa.block_min_d2(pts4, op["centers"])
     ref = fused_sa._block_min_d2_plain(pts4, op["centers"])
-    if not torch.equal(got, ref):
-        raise AssertionError(f"min_d2: max |diff| {(got - ref).abs().max().item()} vs the plain version")
+    for got in (fused_sa.block_min_d2(pts4, op["centers"]),
+                fused_sa.block_min_d2_and_cull(pts4, op["centers"], 1.0)[0]):
+        if not torch.equal(got, ref):
+            raise AssertionError(f"min_d2: max |diff| {(got - ref).abs().max().item()} vs the plain version")
     errs["min_d2"] = 0.0
 
     g = torch.randn(4, op["npoint"], 64, generator=torch.Generator().manual_seed(4)).to(dev)
@@ -198,7 +245,8 @@ def check_kernels(model, dev):
                                  f"{j_diff} indices differ from the plain version")
         errs["fused_sa_argmax"] = (out_a - ref_a).abs().max().item()
 
-        # B4: fed B2's output; the twin is fed the plain forward's
+        # B4: fed B2's output, so its equality select must find B2's
+        # winners; the twin is fed the plain forward's
         got = fused_sa.fused_sa_bwd(sa_op, active, out, g)
         ref = fused_sa._fused_sa_bwd_plain(sa_op, fused_sa._fused_sa_plain(sa_op), g)
         worst = 0.0
@@ -208,7 +256,7 @@ def check_kernels(model, dev):
             err = (x - y).abs().max().item()
             worst = max(worst, err)
             emit({"check": "fused_sa_bwd", "dtype": str(dtype), "result": name, "max_abs_err": err,
-                  "scale": scale, "tolerance": 1e-4 * scale})
+                  "scale": scale, "tolerance": 1e-4 * scale, "fed": "fused_sa kernel output"})
             if not err <= 1e-4 * scale:
                 raise AssertionError(f"fused_sa_bwd {dtype} {name}: max |diff| {err} > 1e-4 of the scale {scale}")
         if got[2][1].abs().max().item() == 0.0 or got[0][3].any() or got[1][3].any():
@@ -271,7 +319,7 @@ def check_bwd_dense(model, dev, dtype):
             raise AssertionError(f"fused_sa_bwd dense {dtype} {name}: max |diff| {err} > 1e-4 of the scale {scale}")
     emit({"check": "fused_sa_bwd_dense", "dtype": str(dtype), "clouds": 4, "points": 4096,
           "in_radius_pairs": pairs, "in_radius_pairs_per_centre": pairs / (4 * op["npoint"]),
-          "max_abs_err": worst, "tolerance_of_scale": 1e-4})
+          "max_abs_err": worst, "tolerance_of_scale": 1e-4, "fed": "fused_sa kernel output"})
     return worst
 
 
@@ -443,6 +491,20 @@ def pair_stats(sa_op):
     return pairs, points_hit
 
 
+def min_d2_ops(pts4, p):
+    """The pre-pass's float32 operations on this data: 3 sub, 3 mul, 2 add
+    and 1 min a (point, centre) pair, and the penalty add for the points of
+    a chunk that holds an invalid point (an all-valid chunk needs none)."""
+    from deepclr_tpu_torch.ops.fused_sa import CHUNK
+
+    b, n, _ = pts4.shape
+    pad = (0, -n % CHUNK)
+    w = torch.nn.functional.pad(pts4[..., 3], pad, value=1.0)  # a ragged chunk takes the add
+    real = torch.nn.functional.pad(torch.ones_like(pts4[..., 3]), pad).view(b, -1, CHUNK)
+    penalty_points = int((real * (w.view(b, -1, CHUNK) != 0).any(-1, keepdim=True)).sum())
+    return 9.0 * b * n * p + 1.0 * penalty_points * p
+
+
 def sa_work(sa_op, active, pairs, points_hit, write_out=True):
     """Bytes, float32 and compute-dtype operations of one fused forward:
     the points, centres, centre term, bitmap, weights and (with `write_out`)
@@ -476,9 +538,10 @@ def time_path(model, dev, templates, sources):
     b, n, p = op["xyz"].shape[0], op["xyz"].shape[1], op["npoint"]
     dtype = model.cloud_features._sa0.compute_dtype
     sa_op, active = fused_operands(op, dtype)
-    pts4, centers = sa_op.pts4, sa_op.centers
+    pts4, centers, r2max = sa_op.pts4, sa_op.centers, sa_op.r2max
     min_d2 = fused_sa.block_min_d2(pts4, centers)
     pairs, points_hit = pair_stats(sa_op)
+    pre_pass_ops = min_d2_ops(pts4, p)
     fps_shapes = {}
     for fb in FPS_BATCHES:
         x, m = op["xyz"][:fb], op["mask"][:fb]
@@ -489,16 +552,23 @@ def time_path(model, dev, templates, sources):
     kernels = {
         "fps": dict(
             ms=kernel_ms(lambda: fps.furthest_point_sample(op["xyz"], p, op["mask"]), 20),
+            device_ms=device_ms(lambda: fps.furthest_point_sample(op["xyz"], p, op["mask"]), 20),
             plain_ms=cuda_ms(lambda: fps._fps_plain(op["xyz"], p, op["mask"]), reps=3),
             # 3 sub, 3 mul, 2 add, 1 min per point and step; xyz + mask in, indices out
             bound=bound(nbytes(op["xyz"], op["mask"]) + b * p * 4, 9.0 * b * (p - 1) * n)),
+        # the path's launch: min-d^2 and the culling bitmap
         "min_d2": dict(
-            ms=kernel_ms(lambda: fused_sa.block_min_d2(pts4, centers), 50),
-            plain_ms=cuda_ms(lambda: fused_sa._block_min_d2_plain(pts4, centers), reps=3),
-            # 3 sub, 3 mul, 3 add, 1 min per pair
-            bound=bound(nbytes(pts4, centers, min_d2), 10.0 * b * n * p)),
+            ms=kernel_ms(lambda: fused_sa.block_min_d2_and_cull(pts4, centers, r2max), 50),
+            device_ms=device_ms(lambda: fused_sa.block_min_d2_and_cull(pts4, centers, r2max), 50),
+            plain_ms=cuda_ms(lambda: fused_sa.cull_bitmap(fused_sa._block_min_d2_plain(pts4, centers), r2max),
+                             reps=3),
+            bound=bound(nbytes(pts4, centers, min_d2, active), pre_pass_ops),
+            # every product rounded: no operation fuses, each is one instruction
+            bound_issue_ms=pre_pass_ops / F32_ISSUE_PER_S * 1e3,
+            min_d2_only_ms=kernel_ms(lambda: fused_sa.block_min_d2(pts4, centers), 50)),
         "fused_sa": dict(
             ms=kernel_ms(lambda: fused_sa.fused_sa_core(sa_op, active), 50),
+            device_ms=device_ms(lambda: fused_sa.fused_sa_core(sa_op, active), 50),
             plain_ms=cuda_ms(lambda: fused_sa._fused_sa_plain(sa_op), reps=3),
             bound=bound(*sa_work(sa_op, active, pairs, points_hit))),
     }
@@ -509,6 +579,9 @@ def time_path(model, dev, templates, sources):
         "in_radius_pairs": pairs, "in_radius_pairs_per_centre": pairs / (b * p), "points_in_a_ball": points_hit,
         "fps_by_batch": fps_shapes,
         "culling_chunks": min_d2.shape[1], "visited_block_share": active.float().mean().item(),
+        "culling": culling_counts(sa_op, active, pairs),
+        "min_d2_bound_issue_ms": kernels["min_d2"]["bound_issue_ms"],
+        "min_d2_only_ms": kernels["min_d2"]["min_d2_only_ms"],
     }
     return metrics, kernels
 
@@ -547,11 +620,13 @@ def time_train(dev, model, opt, loss_fn, metric_fns, batches):
     kernels = {
         "fused_sa_argmax": dict(
             ms=kernel_ms(lambda: fused_sa.fused_sa_argmax(sa_op, active), 50),
+            device_ms=device_ms(lambda: fused_sa.fused_sa_argmax(sa_op, active), 50),
             plain_ms=cuda_ms(lambda: fused_sa._fused_sa_argmax_plain(sa_op), reps=3),
             # the forward's work, plus the int32 winner per (centre, column)
             bound=bound(byts + b * p * h3 * 4, f32_ops, cd_ops)),
         "fused_sa_bwd": dict(
             ms=kernel_ms(lambda: fused_sa.fused_sa_bwd(sa_op, active, out, g), 50),
+            device_ms=device_ms(lambda: fused_sa.fused_sa_bwd(sa_op, active, out, g), 50),
             plain_ms=cuda_ms(lambda: fused_sa._fused_sa_bwd_plain(sa_op, out, g), reps=3),
             bound=bwd_bound(sa_op, active, out, g, pairs, points_hit)),
     }
@@ -560,7 +635,11 @@ def time_train(dev, model, opt, loss_fn, metric_fns, batches):
                "train_pairs_per_s": TRAIN_BATCH / (micro_ms / 1e3), "train_batch_pairs": TRAIN_BATCH,
                "train_accumulation_steps": 2, "train_in_radius_pairs": pairs,
                "train_in_radius_pairs_per_centre": pairs / (b * p),
-               "train_visited_block_share": active.float().mean().item()}
+               "train_visited_block_share": active.float().mean().item(),
+               "train_culling": culling_counts(sa_op, active, pairs),
+               # B2 at B5's shape, for the comparison of the two
+               "fused_sa_train_shape_ms": kernel_ms(lambda: fused_sa.fused_sa_core(sa_op, active), 50),
+               "fused_sa_train_shape_device_ms": device_ms(lambda: fused_sa.fused_sa_core(sa_op, active), 50)}
     return metrics, kernels
 
 
@@ -590,10 +669,13 @@ def bwd_dense_timing(model, dev):
         pairs, points_hit = pair_stats(sa_op)
         bwd_ms = kernel_ms(lambda: fused_sa.fused_sa_bwd(sa_op, active, out, g), 10)
         fwd_ms = kernel_ms(lambda: fused_sa.fused_sa_core(sa_op, active), 10)
+        fwd_device_ms = device_ms(lambda: fused_sa.fused_sa_core(sa_op, active), 10)
     bound_ms, bound_by = bwd_bound(sa_op, active, out, g, pairs, points_hit)
     return {"clouds": 2 * TRAIN_BATCH, "points": 4096, "in_radius_pairs": pairs,
+            "culling": culling_counts(sa_op, active, pairs),
             "in_radius_pairs_per_centre": pairs / (2 * TRAIN_BATCH * op["npoint"]), "fused_sa_bwd_ms": bwd_ms,
-            "fused_sa_bwd_bound_ms": bound_ms, "bound_by": bound_by, "fused_sa_ms": fwd_ms}
+            "fused_sa_bwd_bound_ms": bound_ms, "bound_by": bound_by, "fused_sa_ms": fwd_ms,
+            "fused_sa_device_ms": fwd_device_ms}
 
 
 def main():
@@ -646,7 +728,8 @@ def main():
         rows.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
                      "launches": launches[name], "max_abs_err": errs[name], "ms": k["ms"],
                      "plain_ms": k["plain_ms"], "bound_ms": bound_ms, "bound_by": bound_by,
-                     "library_ms": None})
+                     "library_ms": None, "device_ms": k["device_ms"],
+                     **({"bound_issue_ms": k["bound_issue_ms"]} if "bound_issue_ms" in k else {})})
     emit({"launches_train_path_4_micro_steps": train_counts})
     emit({"kernels": rows})
     print(f"nvidia-smi: {card}", flush=True)

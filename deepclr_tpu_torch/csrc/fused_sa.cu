@@ -10,8 +10,10 @@
 // * fused_sa_kernel<..., ARGMAX = true>: _make_kernel(with_argmax=True),
 //   behind ball_mlp_max_pallas_argmax;
 // * fused_sa_bwd_kernel: _make_bwd_kernel, behind ball_mlp_max_bwd_pallas.
-// All three live in this one source so that the library hash of
-// ops/_cuda.py covers the per-pair code they share.
+// All three live in this one source and run every pair's MLP through one
+// function, pair_recompute, so the backward's recompute equals the
+// forward bit for bit by construction; the library hash of ops/_cuda.py
+// covers it.
 //
 // Semantics (as ops/fused_sa.py::_fused_sa_plain): layer 1 is split outside
 // the kernel into a per-point term a_j = x_j W1x + f_j W1f + b1 and a
@@ -20,51 +22,67 @@
 // two tail layers with float32 accumulation, a float32 bias and ReLU (the
 // middle activation rounded to the compute dtype again).  d^2 is the dx^2
 // form with rounded products (-fmad=false), so it equals the culling
-// pre-pass (csrc/min_d2.cu) bit for bit; the tail's dot products use
-// explicit FMAs in a fixed order (pair_layer1/2/3 below; the backward
-// takes pair_layer3's per-column chain), so the backward's recompute equals
-// the forward bit for bit.
+// pre-pass (csrc/min_d2.cu) bit for bit; the tail's dot products are
+// explicit FMAs in a fixed order (pair_recompute).  Only the widths
+// (32, 32, 64) are compiled: every shipped configuration.
 //
-// What bounds them on H100: neither bytes nor FLOPs of the function itself.
-// The design depends on sparse balls.  On the synthetic KITTI-like clouds
-// that chip_smoke.py drives (normal, sigma = 30, 30, 2 m; 16384 points, 1024
-// centres) chip_smoke.py counts about 1.2 points per 1 m ball, so the
-// in-radius pairs whose MLP the result needs are ~0.01% of the N x P pairs;
-// the time goes to the pair tests of the (chunk, tile) blocks the culling
-// bitmap keeps, the block synchronisation around them and the launch of
-// B * P/16 blocks.  Real scans, denser near the sensor and on the ground,
-// have not been measured; with tens of points per ball the MLP over the
-// listed pairs, and in the backward each pair's recompute and
-// back-propagation, would take over (chip_smoke.py times a dense case).
+// ---- B2 / B5, the forward ----------------------------------------------
 //
-// Design: one block per (centre tile of 16, cloud), 128 threads.  The block
-// walks the point chunks (128 points) and skips every chunk whose bit in the
-// culling bitmap is 0 (the pre-pass min d^2 over the (chunk, tile) block,
-// with a margin, is >= r_max^2).  For a kept chunk it stages the points in
-// shared memory, tests all 16 x 128 pairs (point-major, so the lanes of a
-// warp cover 16 centres), and compacts the pairs with d^2 < r_max^2 into a
-// shared list with warp ballots.  Only listed pairs run the MLP: one thread
-// per pair, activations in registers, weights read as shared-memory
-// broadcasts.  The TPU kernels' lane packing, expansion matmul, SMEM bitmap
-// layout, centre splits and tile sweeps are not carried over; the dense
-// tail over every tile pair is replaced by the compacted pair list.
+// What bounds it on H100: bytes, ~0.008 ms at the serving shapes (32 clouds
+// x 16384 points -> 1024 centres; chip_smoke.py's bound): the points,
+// centres, centre terms, bitmap and output once, and the point-term rows
+// of the points inside some ball.  Its operations, ~40k in-radius pairs of
+// ~3k multiply-adds on the synthetic KITTI-like clouds (~1.2 points a 1 m
+// ball), are microseconds of work.  What is left after culling is small
+// and scattered, so the design fights latency: a block's chain of
+// dependent global loads and barriers, and a lane that runs a pair's MLP
+// alone while its block waits.  On dense balls (~190 points a 1 m ball)
+// the MLP's issue rate and, were the weights read from shared memory, the
+// shared-memory pipe bound it.
 //
-// Forward: each output column's max lives in shared memory as the int bit
-// pattern of a non-negative float (ReLU makes every value >= 0, so int order
-// is float order) and is updated with shared atomicMax; the rows are padded
-// by one word so the lanes' centres fall in distinct banks.
+// Design: one block of four warps per (centre tile of 16, cloud), the
+// culling bitmap's layout (B4 reads the same bitmap).
+// * Kept chunks: the block reads its tile's bitmap bytes 128 chunks at a
+//   time, one byte a thread, and compacts the kept chunks into a shared
+//   list with warp ballots; no serial walk over the nc bytes.
+// * Prefetch: each kept chunk's 128 points (2 KB) are copied into one of
+//   two shared buffers with cp.async, one 16-byte point a thread, issued
+//   before the chunk ahead of it is tested and waited for after.
+// * Pair tests: thread i tests point i of the chunk against the tile's 16
+//   centres (broadcast reads) and keeps a 16-bit hit mask.  Warp ballots
+//   count the hits per (centre, warp), a 64-entry scan gives their offsets,
+//   and the pairs are appended centre-major, each with its global point
+//   index and d^2, to the block's pair list, which accumulates over chunks.
+// * Rounds: when the list could not take another chunk's 2048 pairs, and
+//   at the end, its pairs go in four contiguous runs, one a warp.  A warp
+//   takes its pairs one at a time with lanes over units (pair_recompute):
+//   lane c holds W2 column c and W3 columns c and c + 32 in registers and
+//   reads the rounded layer inputs as float4 broadcasts from its warp's
+//   rows, so no weight is read from shared memory and no lane runs a pair
+//   alone.  Each warp loads its next pair's point term while it works on
+//   the current one.
+// Design studies (not kept): two or four pairs a warp, their chains
+// interleaved, were faster on dense balls and slower on the serving shapes;
+// a ring of three or four chunk buffers, and prefetching each listed pair's
+// point-term row into L1, were no faster on the serving shapes.
+// * Column max: a lane keeps its two columns' running max in registers
+//   while consecutive pairs share a centre (the list is centre-major
+//   within each chunk), and flushes it with one shared atomicMax a column
+//   when the centre changes.  B2's word is the int bit pattern of a
+//   non-negative float (ReLU makes every value >= 0, so int order is float
+//   order), initialised to -1 for "no hit"; the rows are padded by one word.
 //
-// Argmax (ARGMAX = true): the shared word is 64-bit,
-// (float bits << 32) | ~j for the flat point index j, updated with a 64-bit
-// atomicMax.  Tie rule: the largest value, and among equal values the
-// LOWEST point index (~j is larger for a smaller j).  0 marks "no hit":
-// every real key is > 0.  The TPU kernel breaks ties group-major
-// (fused_sa_kernel.py:213-224, 464-465), so the two agree on the winner
-// only where it is unique; both agree on every value.  An empty ball gives
-// out = 0 and j = -1.
+// Argmax (ARGMAX = true): the word is 64-bit, (float bits << 32) | ~j for
+// the flat point index j.  Tie rule: the largest value, and among equal
+// values the LOWEST point index (~j is larger for a smaller j); the max of
+// keys is order-free, so the runs, rounds and flushes cannot change the
+// winner.  0 marks "no hit": every real key is > 0.  The TPU kernel breaks
+// ties group-major (fused_sa_kernel.py:213-224, 464-465), so the two agree
+// on the winner only where it is unique; both agree on every value.  An
+// empty ball gives out = 0 and j = -1.
 //
-// Backward (equality-select): the same grid, bitmap and pair list; each
-// listed pair recomputes its activations with the forward's FMA chains and
+// Backward (equality-select): the same grid and bitmap, its own pair list
+// (point-major, per chunk); each listed pair runs pair_recompute and
 // selects the columns whose value equals the forward's out[p, c].  The
 // section above fused_sa_bwd_kernel gives its design.
 #include <cuda_bf16.h>
@@ -75,9 +93,11 @@
 namespace {
 
 constexpr int kThreads = 128;
+constexpr int kWarps = kThreads / 32;
 constexpr int kTile = 16;    // centres per block
 constexpr int kChunk = 128;  // points per culling chunk
 constexpr int kPairs = kTile * kChunk;
+constexpr unsigned kFull = 0xffffffffu;
 
 template <bool BF16>
 __device__ __forceinline__ float to_cd(float x) {
@@ -102,98 +122,91 @@ __device__ __forceinline__ float sq_dist(const float4 pt, const float4 ct) {
 
 // ---- the per-pair MLP, shared by the forward and the backward ------------
 
-// layer 1: relu(a_j + bc_p) in float32 (not yet rounded)
-template <int H1>
-__device__ __forceinline__ void pair_layer1(const float* __restrict__ arow, const float* bct,
-                                            float (&h1)[H1]) {
-  const float4* a4 = reinterpret_cast<const float4*>(arow);
-#pragma unroll
-  for (int k4 = 0; k4 < H1 / 4; ++k4) {
-    const float4 av = __ldg(a4 + k4);
-    h1[4 * k4 + 0] = relu(av.x + bct[4 * k4 + 0]);
-    h1[4 * k4 + 1] = relu(av.y + bct[4 * k4 + 1]);
-    h1[4 * k4 + 2] = relu(av.z + bct[4 * k4 + 2]);
-    h1[4 * k4 + 3] = relu(av.w + bct[4 * k4 + 3]);
-  }
-}
+// Lane c's weights: W2 column c, W3 columns c and c + 32 (already rounded
+// to the compute dtype, held in float32), in registers for the whole block.
+struct LaneWeights {
+  float w2c[32], w3lo[32], w3hi[32];
 
-// layer 2 on the rounded layer-1 output: relu(h1 W2 + b2) in float32 (not
-// yet rounded); FMAs in input order
-template <int H1, int H2>
-__device__ __forceinline__ void pair_layer2(const float (&h1)[H1], const float* sw2,
-                                            const float* sb2, float (&h2)[H2]) {
+  __device__ __forceinline__ void load(const float* __restrict__ w2, const float* __restrict__ w3,
+                                       int lane) {
 #pragma unroll
-  for (int c2 = 0; c2 < H2; ++c2) h2[c2] = 0.0f;
+    for (int k = 0; k < 32; ++k) w2c[k] = __ldg(w2 + k * 32 + lane);
 #pragma unroll
-  for (int k = 0; k < H1; ++k) {
-    const float hk = h1[k];
-    const float4* wr = reinterpret_cast<const float4*>(sw2 + k * H2);
-#pragma unroll
-    for (int c4 = 0; c4 < H2 / 4; ++c4) {
-      const float4 w = wr[c4];
-      h2[4 * c4 + 0] = __fmaf_rn(hk, w.x, h2[4 * c4 + 0]);
-      h2[4 * c4 + 1] = __fmaf_rn(hk, w.y, h2[4 * c4 + 1]);
-      h2[4 * c4 + 2] = __fmaf_rn(hk, w.z, h2[4 * c4 + 2]);
-      h2[4 * c4 + 3] = __fmaf_rn(hk, w.w, h2[4 * c4 + 3]);
+    for (int k = 0; k < 32; ++k) {
+      w3lo[k] = __ldg(w3 + k * 64 + lane);
+      w3hi[k] = __ldg(w3 + k * 64 + lane + 32);
     }
   }
-#pragma unroll
-  for (int c2 = 0; c2 < H2; ++c2) h2[c2] = relu(h2[c2] + sb2[c2]);
-}
+};
 
-// layer 3, output columns [cb, cb + kCols) on the rounded layer-2 output
-template <int H2, int H3, int kCols>
-__device__ __forceinline__ void pair_layer3(const float (&h2)[H2], const float* sw3,
-                                            const float* sb3, int cb, float (&acc)[kCols]) {
+// One pair's MLP at widths (32, 32, 64), the whole warp together, lanes
+// over units: lane c returns layer-1 unit c (h1), layer-2 unit c (h2) and
+// layer-3 columns c and c + 32 (v_lo, v_hi), each float32 after its ReLU,
+// not rounded.  A dot product runs k ascending from 0 with __fmaf_rn, then
+// adds the bias, then takes ReLU; its input, the previous layer rounded to
+// the compute dtype, is staged in the warp's rows h1row and h2row (32
+// floats each, 16-byte aligned) and read back as float4 broadcasts.  The
+// forward and the backward both call this, so they compute the same bits.
+// A warp may reuse the same two rows for its next pair: the second
+// __syncwarp here is passed only after every lane's layer-2 reads, and the
+// next pair's first only after its layer-3 reads.
+template <bool BF16>
+__device__ __forceinline__ void pair_recompute(const LaneWeights& w, float a_c, float bc_c,
+                                               const float* sb2, const float* sb3, float* h1row,
+                                               float* h2row, float& h1, float& h2, float& v_lo,
+                                               float& v_hi) {
+  const int lane = threadIdx.x & 31;
+  h1 = relu(a_c + bc_c);
+  h1row[lane] = to_cd<BF16>(h1);
+  __syncwarp();
+  float acc2 = 0.0f;
 #pragma unroll
-  for (int c3 = 0; c3 < kCols; ++c3) acc[c3] = 0.0f;
-#pragma unroll
-  for (int k = 0; k < H2; ++k) {
-    const float hk = h2[k];
-    const float4* wr = reinterpret_cast<const float4*>(sw3 + k * H3 + cb);
-#pragma unroll
-    for (int c4 = 0; c4 < kCols / 4; ++c4) {
-      const float4 w = wr[c4];
-      acc[4 * c4 + 0] = __fmaf_rn(hk, w.x, acc[4 * c4 + 0]);
-      acc[4 * c4 + 1] = __fmaf_rn(hk, w.y, acc[4 * c4 + 1]);
-      acc[4 * c4 + 2] = __fmaf_rn(hk, w.z, acc[4 * c4 + 2]);
-      acc[4 * c4 + 3] = __fmaf_rn(hk, w.w, acc[4 * c4 + 3]);
-    }
+  for (int k4 = 0; k4 < 8; ++k4) {
+    const float4 hv = *reinterpret_cast<const float4*>(h1row + 4 * k4);
+    acc2 = __fmaf_rn(hv.x, w.w2c[4 * k4 + 0], acc2);
+    acc2 = __fmaf_rn(hv.y, w.w2c[4 * k4 + 1], acc2);
+    acc2 = __fmaf_rn(hv.z, w.w2c[4 * k4 + 2], acc2);
+    acc2 = __fmaf_rn(hv.w, w.w2c[4 * k4 + 3], acc2);
   }
+  h2 = relu(acc2 + sb2[lane]);
+  h2row[lane] = to_cd<BF16>(h2);
+  __syncwarp();
+  v_lo = 0.0f;
+  v_hi = 0.0f;
 #pragma unroll
-  for (int c3 = 0; c3 < kCols; ++c3) acc[c3] = relu(acc[c3] + sb3[cb + c3]);
+  for (int k4 = 0; k4 < 8; ++k4) {
+    const float4 hv = *reinterpret_cast<const float4*>(h2row + 4 * k4);
+    v_lo = __fmaf_rn(hv.x, w.w3lo[4 * k4 + 0], v_lo);
+    v_hi = __fmaf_rn(hv.x, w.w3hi[4 * k4 + 0], v_hi);
+    v_lo = __fmaf_rn(hv.y, w.w3lo[4 * k4 + 1], v_lo);
+    v_hi = __fmaf_rn(hv.y, w.w3hi[4 * k4 + 1], v_hi);
+    v_lo = __fmaf_rn(hv.z, w.w3lo[4 * k4 + 2], v_lo);
+    v_hi = __fmaf_rn(hv.z, w.w3hi[4 * k4 + 2], v_hi);
+    v_lo = __fmaf_rn(hv.w, w.w3lo[4 * k4 + 3], v_lo);
+    v_hi = __fmaf_rn(hv.w, w.w3hi[4 * k4 + 3], v_hi);
+  }
+  v_lo = relu(v_lo + sb3[lane]);
+  v_hi = relu(v_hi + sb3[lane + 32]);
 }
 
 // ---- the block's shared staging, common to all three kernels -------------
 
 template <int H1, int H2, int H3>
 struct Staging {
-  float w2[H1 * H2];
-  float w3[H2 * H3];
   float b2[H2];
   float b3[H3];
   float r2[H3];
   float bc[kTile * (H1 + 1)];
   float4 cts[kTile];
-  float4 pts[kChunk];
-  int count;
 };
 
-// kWeights = false leaves s.w2 and s.w3 unwritten (the backward keeps its
-// own copies)
-template <bool kWeights = true, int H1, int H2, int H3>
+template <int H1, int H2, int H3>
 __device__ __forceinline__ void stage_block(Staging<H1, H2, H3>& s, const float* __restrict__ cts,
                                             const float* __restrict__ bc,
-                                            const float* __restrict__ w2,
                                             const float* __restrict__ b2,
-                                            const float* __restrict__ w3,
                                             const float* __restrict__ b3,
                                             const float* __restrict__ r2, int b, int p, int p0) {
   const int tid = threadIdx.x;
-  if constexpr (kWeights) {
-    for (int i = tid; i < H1 * H2; i += kThreads) s.w2[i] = w2[i];
-    for (int i = tid; i < H2 * H3; i += kThreads) s.w3[i] = w3[i];
-  }
   for (int i = tid; i < H2; i += kThreads) s.b2[i] = b2[i];
   for (int i = tid; i < H3; i += kThreads) {
     s.b3[i] = b3[i];
@@ -211,45 +224,92 @@ __device__ __forceinline__ void stage_block(Staging<H1, H2, H3>& s, const float*
   }
 }
 
-// Stage chunk c's points and compact its in-radius pairs (q = t + i * kTile)
-// into `list`; returns the pair count.  Call with every thread of the block.
-template <int H1, int H2, int H3, typename Q>
-__device__ __forceinline__ int list_pairs(Staging<H1, H2, H3>& s, Q* list, float* d2s,
-                                          const float4* __restrict__ pts, int b, int n, int j0,
-                                          float r2max) {
-  const int tid = threadIdx.x, lane = tid & 31;
-  __syncthreads();  // the previous chunk's pairs are consumed
-  const int cnt = min(kChunk, n - j0);
-  for (int i = tid; i < kChunk; i += kThreads) {
-    // w = BIG*invalid for real points; 1 marks a slot past the cloud
-    s.pts[i] = i < cnt ? pts[(size_t)b * n + j0 + i] : make_float4(0.0f, 0.0f, 0.0f, 1.0f);
-  }
-  if (tid == 0) s.count = 0;
-  __syncthreads();
+// ---- B2 / B5: forward, optionally with the winner index -------------------
 
-  for (int base = 0; base < kPairs; base += kThreads) {
-    const int q = base + tid;
-    const float4 ct = s.cts[q % kTile], pt = s.pts[q / kTile];
-    const float d2 = sq_dist(pt, ct);
-    const bool hit = pt.w == 0.0f && ct.w == 0.0f && d2 < r2max;
-    const unsigned ballot = __ballot_sync(0xffffffffu, hit);
-    if (ballot) {
-      const int leader = __ffs(ballot) - 1;
-      int pos = 0;
-      if (lane == leader) pos = atomicAdd(&s.count, __popc(ballot));
-      pos = __shfl_sync(0xffffffffu, pos, leader);
-      if (hit) {
-        pos += __popc(ballot & ((1u << lane) - 1u));
-        list[pos] = (Q)q;
-        if (d2s != nullptr) d2s[pos] = d2;
-      }
-    }
-  }
-  __syncthreads();
-  return s.count;
+constexpr int kListCap = 3072;               // pairs the block's list holds
+constexpr int kRoundAt = kListCap - kPairs;  // a round runs once the list holds more
+
+// cp.async of one 16-byte point into shared memory; bytes = 0 writes zeros
+__device__ __forceinline__ void cp_async16(float4* dst, const float4* src, int bytes) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+__device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_group 0;\n" ::: "memory"); }
+
+// this thread's point of chunk c into buf (zeros past the cloud)
+__device__ __forceinline__ void prefetch_chunk(float4* buf, const float4* cloud, int c, int n) {
+  const int j = c * kChunk + threadIdx.x;
+  cp_async16(buf + threadIdx.x, cloud + (j < n ? j : 0), j < n ? 16 : 0);
 }
 
-// ---- B2 / B5: forward, optionally with the winner index -------------------
+// The column-max word: B2 the int bits of a value >= 0, B5 (bits << 32) | ~j
+template <bool ARGMAX>
+using MaxKey = std::conditional_t<ARGMAX, unsigned long long, int>;
+
+template <bool ARGMAX>
+__device__ __forceinline__ MaxKey<ARGMAX> no_hit() {
+  return ARGMAX ? MaxKey<ARGMAX>(0) : MaxKey<ARGMAX>(-1);
+}
+
+template <bool ARGMAX>
+__device__ __forceinline__ MaxKey<ARGMAX> max_key(float v, int j) {
+  if constexpr (ARGMAX) {
+    return ((unsigned long long)__float_as_uint(v) << 32) | (unsigned)(~j);
+  } else {
+    return __float_as_int(v);
+  }
+}
+
+template <bool ARGMAX>
+__device__ __forceinline__ void flush_max(MaxKey<ARGMAX>* row, MaxKey<ARGMAX> lo, MaxKey<ARGMAX> hi) {
+  const int lane = threadIdx.x & 31;
+  if (lo != no_hit<ARGMAX>()) atomicMax(row + lane, lo);
+  if (hi != no_hit<ARGMAX>()) atomicMax(row + lane + 32, hi);
+}
+
+// One round over the list's `total` pairs: four contiguous runs, one a
+// warp, each pair's MLP with lanes over units, the column max in registers
+// while the centre stays the same.
+template <bool BF16, bool ARGMAX, int H1, int H2, int H3>
+__device__ __forceinline__ void mlp_round(const Staging<H1, H2, H3>& s, const LaneWeights& lw,
+                                          const int* slist, const float* sd2, int total,
+                                          const float* __restrict__ arows, float* h1row,
+                                          float* h2row, MaxKey<ARGMAX> (*smax)[H3 + 1]) {
+  using Key = MaxKey<ARGMAX>;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int per = (total + kWarps - 1) / kWarps;
+  const int e0 = warp * per, e1 = min(e0 + per, total);
+  if (e0 >= e1) return;  // warp-uniform
+  const float r2lo = s.r2[lane], r2hi = s.r2[lane + 32];
+  int cur_t = slist[e0] & (kTile - 1);
+  Key run_lo = no_hit<ARGMAX>(), run_hi = no_hit<ARGMAX>();
+  float a_next = __ldg(arows + (size_t)(slist[e0] >> 4) * H1 + lane);
+  for (int e = e0; e < e1; ++e) {
+    const int q = slist[e], t = q & (kTile - 1), j = q >> 4;
+    const float d2 = sd2[e];
+    const float a_c = a_next;
+    if (e + 1 < e1) a_next = __ldg(arows + (size_t)(slist[e + 1] >> 4) * H1 + lane);
+    if (t != cur_t) {  // warp-uniform: the previous centre's run is complete
+      flush_max<ARGMAX>(smax[cur_t], run_lo, run_hi);
+      cur_t = t;
+      run_lo = run_hi = no_hit<ARGMAX>();
+    }
+    float h1, h2, v_lo, v_hi;
+    pair_recompute<BF16>(lw, a_c, s.bc[t * (H1 + 1) + lane], s.b2, s.b3, h1row, h2row, h1, h2, v_lo,
+                         v_hi);
+    if (d2 < r2lo) {
+      const Key k = max_key<ARGMAX>(v_lo, j);
+      run_lo = k > run_lo ? k : run_lo;
+    }
+    if (d2 < r2hi) {
+      const Key k = max_key<ARGMAX>(v_hi, j);
+      run_hi = k > run_hi ? k : run_hi;
+    }
+  }
+  flush_max<ARGMAX>(smax[cur_t], run_lo, run_hi);
+}
 
 template <int H1, int H2, int H3, bool BF16, bool ARGMAX>
 __global__ void __launch_bounds__(kThreads)
@@ -259,71 +319,134 @@ fused_sa_kernel(const float4* __restrict__ pts, const float* __restrict__ a,
                 const float* __restrict__ w3, const float* __restrict__ b3,
                 const float* __restrict__ r2, const uint8_t* __restrict__ active,
                 float* __restrict__ out, int* __restrict__ jstar, int n, int p, float r2max) {
-  static_assert(H1 % 4 == 0 && H2 % 4 == 0 && H3 % 4 == 0, "widths must be multiples of 4");
-  constexpr int kCols = H3 < 32 ? H3 : 32;  // layer-3 columns per register block
-  static_assert(H3 % kCols == 0, "H3 must be a multiple of the column block");
-  using Key = std::conditional_t<ARGMAX, unsigned long long, int>;
+  static_assert(H1 == 32 && H2 == 32 && H3 == 64,
+                "lane c owns layer-1/2 unit c and layer-3 columns c, c + 32");
+  static_assert(kThreads == kChunk, "thread i tests point i of a chunk");
+  using Key = MaxKey<ARGMAX>;
 
   __shared__ __align__(16) Staging<H1, H2, H3> s;
-  __shared__ Key smax[kTile * (H3 + 1)];
-  __shared__ int slist[kPairs];
-  __shared__ float sd2[kPairs];
+  __shared__ __align__(16) float4 spts[2][kChunk];     // the kept chunks' points, double-buffered
+  __shared__ __align__(16) float srows[kWarps][2][H1];  // each warp's rounded h1 and h2 rows
+  __shared__ Key smax[kTile][H3 + 1];
+  __shared__ int slist[kListCap];  // (j << 4) | t: global point index, centre in the tile
+  __shared__ float sd2[kListCap];
+  __shared__ int skept[kThreads];                                // the window's kept chunks
+  __shared__ int scnt[kTile * kWarps], soff[kTile * kWarps];     // per (centre, warp)
+  __shared__ int swarp[kWarps];
+  __shared__ int s_count;
 
   const int tile = blockIdx.x, b = blockIdx.y, ntiles = gridDim.x;
-  const int tid = threadIdx.x;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const unsigned below = (1u << lane) - 1u;
   const int p0 = tile * kTile;
   const int nc = (n + kChunk - 1) / kChunk;
+  const float4* cloud = pts + (size_t)b * n;
+  const float* arows = a + (size_t)b * n * H1;
+  float* h1row = srows[warp][0];
+  float* h2row = srows[warp][1];
 
-  stage_block(s, cts, bc, w2, b2, w3, b3, r2, b, p, p0);
-  // no hit yet: -1 for the value bits, 0 for the (value, ~j) key
-  for (int i = tid; i < kTile * (H3 + 1); i += kThreads) smax[i] = ARGMAX ? Key(0) : Key(-1);
+  stage_block(s, cts, bc, b2, b3, r2, b, p, p0);
+  for (int i = tid; i < kTile * (H3 + 1); i += kThreads) (&smax[0][0])[i] = no_hit<ARGMAX>();
+  if (tid == 0) s_count = 0;
+  LaneWeights lw;
+  lw.load(w2, w3, lane);
 
   const uint8_t* act = active + (size_t)b * nc * ntiles + tile;
-  for (int c = 0; c < nc; ++c) {
-    if (!act[(size_t)c * ntiles]) continue;  // same byte for the whole block
-    const int j0 = c * kChunk;
-    const int total = list_pairs(s, slist, sd2, pts, b, n, j0, r2max);
+  for (int c0 = 0; c0 < nc; c0 += kThreads) {
+    // the window's kept chunks, in order: one bitmap byte a thread, ballots
+    const int cw = c0 + tid;
+    const bool keep = cw < nc && act[(size_t)cw * ntiles] != 0;
+    const unsigned kb = __ballot_sync(kFull, keep);
+    if (lane == 0) swarp[warp] = __popc(kb);
+    __syncthreads();  // (first window: the staging too)
+    int nk = 0, before = 0;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      before += w < warp ? swarp[w] : 0;
+      nk += swarp[w];
+    }
+    if (keep) skept[before + __popc(kb & below)] = cw;
+    __syncthreads();
+    if (nk == 0) continue;  // block-uniform
 
-    for (int e = tid; e < total; e += kThreads) {
-      const int q = slist[e];
-      const float d2 = sd2[e];
-      const int t = q % kTile, j = j0 + q / kTile;
+    prefetch_chunk(spts[0], cloud, skept[0], n);
+    cp_async_commit();
+    cp_async_wait_all();
+    __syncthreads();
+    for (int kk = 0; kk < nk; ++kk) {
+      // into the buffer chunk kk - 1 used: every thread read it before
+      // that chunk's first barrier
+      if (kk + 1 < nk) prefetch_chunk(spts[(kk + 1) & 1], cloud, skept[kk + 1], n);
+      cp_async_commit();
 
-      float h1[H1];
-      pair_layer1<H1>(a + ((size_t)b * n + j) * H1, s.bc + t * (H1 + 1), h1);
+      // this thread's point against the tile's centres
+      const int j = skept[kk] * kChunk + tid;
+      const float4 pt = spts[kk & 1][tid];
+      unsigned hits = 0;
+      if (j < n && pt.w == 0.0f) {  // w = BIG*invalid; past the cloud the slot is zeros
 #pragma unroll
-      for (int k = 0; k < H1; ++k) h1[k] = to_cd<BF16>(h1[k]);
-      float h2[H2];
-      pair_layer2<H1, H2>(h1, s.w2, s.b2, h2);
+        for (int t = 0; t < kTile; ++t) {
+          const float4 ct = s.cts[t];
+          if (ct.w == 0.0f && sq_dist(pt, ct) < r2max) hits |= 1u << t;
+        }
+      }
+      // hits per (centre, warp), then a centre-major scan gives the offsets
+      const bool any = __any_sync(kFull, hits != 0);
+      int mine = 0;
+      if (any) {
 #pragma unroll
-      for (int k = 0; k < H2; ++k) h2[k] = to_cd<BF16>(h2[k]);
-
-      Key* mrow = smax + t * (H3 + 1);
+        for (int t = 0; t < kTile; ++t) {
+          const unsigned bt = __ballot_sync(kFull, (hits >> t) & 1u);
+          if (lane == t) mine = __popc(bt);
+        }
+      }
+      if (lane < kTile) scnt[lane * kWarps + warp] = mine;
+      __syncthreads();
+      if (warp == 0) {
+        const int v0 = scnt[2 * lane], v1 = scnt[2 * lane + 1];
+        int incl = v0 + v1;
 #pragma unroll
-      for (int cb = 0; cb < H3; cb += kCols) {
-        float v[kCols];
-        pair_layer3<H2, H3, kCols>(h2, s.w3, s.b3, cb, v);
+        for (int o = 1; o < 32; o <<= 1) {
+          const int y = __shfl_up_sync(kFull, incl, o);
+          if (lane >= o) incl += y;
+        }
+        const int base = s_count;
+        __syncwarp();
+        soff[2 * lane] = base + incl - v0 - v1;
+        soff[2 * lane + 1] = base + incl - v1;
+        if (lane == 31) s_count = base + incl;
+      }
+      cp_async_wait_all();  // chunk kk + 1 has landed
+      __syncthreads();      // the offsets and chunk kk + 1's points are visible
+      if (any) {
 #pragma unroll
-        for (int c3 = 0; c3 < kCols; ++c3) {
-          if (d2 < s.r2[cb + c3]) {
-            if constexpr (ARGMAX) {
-              const unsigned long long key =
-                  ((unsigned long long)__float_as_uint(v[c3]) << 32) | (unsigned)(~j);
-              atomicMax(mrow + cb + c3, key);
-            } else {
-              atomicMax(mrow + cb + c3, __float_as_int(v[c3]));
-            }
+        for (int t = 0; t < kTile; ++t) {
+          const unsigned bt = __ballot_sync(kFull, (hits >> t) & 1u);
+          if ((hits >> t) & 1u) {
+            const int pos = soff[t * kWarps + warp] + __popc(bt & below);
+            slist[pos] = (j << 4) | t;
+            sd2[pos] = sq_dist(pt, s.cts[t]);
           }
         }
       }
+      const int total = s_count;
+      if (total > kRoundAt) {  // block-uniform: the next chunk might not fit
+        __syncthreads();       // the list is complete
+        mlp_round<BF16, ARGMAX>(s, lw, slist, sd2, total, arows, h1row, h2row, smax);
+        __syncthreads();       // every run has read the list
+        if (tid == 0) s_count = 0;
+      }
     }
   }
+  __syncthreads();
+  const int total = s_count;
+  if (total > 0) mlp_round<BF16, ARGMAX>(s, lw, slist, sd2, total, arows, h1row, h2row, smax);
   __syncthreads();
 
   for (int i = tid; i < kTile * H3; i += kThreads) {
     const int t = i / H3, col = i % H3, q = p0 + t;
     if (q < p) {
-      const Key v = smax[t * (H3 + 1) + col];
+      const Key v = smax[t][col];
       const size_t o = ((size_t)b * p + q) * H3 + col;
       if constexpr (ARGMAX) {
         out[o] = v == 0 ? 0.0f : __uint_as_float((unsigned)(v >> 32));
@@ -349,25 +472,21 @@ fused_sa_kernel(const float4* __restrict__ pts, const float* __restrict__ a,
 //
 // What bounds it on H100: not the function's bytes or operations (its
 // bound counts ~10 us at the train shapes) but, per block, the latency of
-// the pair tests (as in B2) and of each pair's chain of dependent
-// multiply-adds.  The first design carried each pair on one lane of
-// warp 0 through every step in sequence (~5,000 dependent FMAs and shared
-// loads) while the other three warps waited: 0.559 ms at 10 x 16384 -> 1024
-// (NVIDIA H100 80GB HBM3, 700 W), 56x its bound, and slower as balls fill.
+// the pair tests and of each pair's chain of dependent multiply-adds.  The
+// first design carried each pair on one lane of warp 0 through every step
+// in sequence (~5,000 dependent FMAs and shared loads) while the other
+// three warps waited: 0.559 ms at 10 x 16384 -> 1024 (NVIDIA H100 80GB
+// HBM3, 700 W), 56x its bound, and slower as balls fill.
 //
-// Design: the same grid (one block of 4 warps per 16-centre tile), culling
-// bitmap and pair list as B2.  The pairs go in rounds of up to 32, split
-// into four contiguous runs, one a warp, and a warp takes its pairs one at
-// a time with its lanes over units:
-//   * lane c computes layer-1 unit c, layer-2 unit c and layer-3 columns c
-//     and c + 32, each with the forward's FMA chain (pair_layer2/3: k
-//     ascending from 0, then the bias, then ReLU), its weights (W2 column
-//     c, W3 columns c and c + 32) held in registers for the whole block
-//     and the rounded layer input read as float4 broadcasts from the pair's
-//     staged shared row; so each value equals the forward's bit for bit and
-//     the equality test selects the forward's winners.  (With the weights
-//     in shared memory too, the shared-memory pipe, ~160 loads a pair, bound
-//     the dense case);
+// Design: the same grid (one block of 4 warps per 16-centre tile) and
+// culling bitmap as B2, and its own per-chunk pair list (list_pairs,
+// point-major).  The pairs go in rounds of up to 32, split into four
+// contiguous runs, one a warp, and a warp takes its pairs one at a time
+// with its lanes over units:
+//   * pair_recompute gives lane c layer-1 unit c, layer-2 unit c and
+//     layer-3 columns c and c + 32, exactly as the forward computed them, so
+//     the equality test selects the forward's winners; the rounded layer
+//     inputs it stages are the round's h1 and h2 rows;
 //   * dh2 = W3 d3 and dh1 = W2 d2 take lanes over the input unit, summing
 //     only the selected columns (warp ballots) of the staged rounded delta
 //     row, against copies of W3 and W2 in shared memory with rows padded
@@ -390,12 +509,49 @@ fused_sa_kernel(const float4* __restrict__ pts, const float* __restrict__ a,
 //
 // Measured (chip_smoke.py, back-to-back launches, NVIDIA H100 80GB HBM3,
 // 700 W), bf16 at 10 clouds x 16384 -> 1024: 0.19 ms on the synthetic
-// clouds (~1.2 points a 1 m ball; B2 0.18 ms), 2.1 ms on a dense cube
-// (~190 points a 1 m ball; B2 1.2 ms).
+// clouds (~1.2 points a 1 m ball), 2.1 ms on a dense cube (~190 points a
+// 1 m ball).
 
-constexpr int kWarps = kThreads / 32;
 constexpr int kRound = 32;  // pairs staged per round
-constexpr unsigned kFull = 0xffffffffu;
+
+// Stage chunk c's points and compact its in-radius pairs (q = t + i * kTile,
+// point-major) into `list`; returns the pair count.  Call with every thread
+// of the block.
+template <int H1, int H2, int H3>
+__device__ __forceinline__ int list_pairs(const Staging<H1, H2, H3>& s, float4* spts,
+                                          unsigned short* list, int* count,
+                                          const float4* __restrict__ pts, int b, int n, int j0,
+                                          float r2max) {
+  const int tid = threadIdx.x, lane = tid & 31;
+  __syncthreads();  // the previous chunk's pairs are consumed
+  const int cnt = min(kChunk, n - j0);
+  for (int i = tid; i < kChunk; i += kThreads) {
+    // w = BIG*invalid for real points; 1 marks a slot past the cloud
+    spts[i] = i < cnt ? pts[(size_t)b * n + j0 + i] : make_float4(0.0f, 0.0f, 0.0f, 1.0f);
+  }
+  if (tid == 0) *count = 0;
+  __syncthreads();
+
+  for (int base = 0; base < kPairs; base += kThreads) {
+    const int q = base + tid;
+    const float4 ct = s.cts[q % kTile], pt = spts[q / kTile];
+    const float d2 = sq_dist(pt, ct);
+    const bool hit = pt.w == 0.0f && ct.w == 0.0f && d2 < r2max;
+    const unsigned ballot = __ballot_sync(kFull, hit);
+    if (ballot) {
+      const int leader = __ffs(ballot) - 1;
+      int pos = 0;
+      if (lane == leader) pos = atomicAdd(count, __popc(ballot));
+      pos = __shfl_sync(kFull, pos, leader);
+      if (hit) {
+        pos += __popc(ballot & ((1u << lane) - 1u));
+        list[pos] = (unsigned short)q;
+      }
+    }
+  }
+  __syncthreads();
+  return *count;
+}
 
 // One round's pairs: the rounded layer inputs and rounded deltas.  Rows
 // are padded by 4 words: 16-byte aligned for float4 broadcasts, and the mma
@@ -576,7 +732,9 @@ fused_sa_bwd_kernel(const float4* __restrict__ pts, const float* __restrict__ a,
   using Rows = RoundRows<H1, H2, H3>;
 
   __shared__ __align__(16) Staging<H1, H2, H3> s;
+  __shared__ __align__(16) float4 spts[kChunk];
   __shared__ unsigned short slist[kPairs];
+  __shared__ int s_count;
   __shared__ float sdbc[kTile * (H1 + 1)];
   // the weights with rows padded by one word, for the back-propagation:
   // lanes over input units read them conflict-free
@@ -592,7 +750,7 @@ fused_sa_bwd_kernel(const float4* __restrict__ pts, const float* __restrict__ a,
   const int p0 = tile * kTile;
   const int nc = (n + kChunk - 1) / kChunk;
 
-  stage_block<false>(s, cts, bc, w2, b2, w3, b3, r2, b, p, p0);
+  stage_block(s, cts, bc, b2, b3, r2, b, p, p0);
   for (int i = tid; i < H1 * H2; i += kThreads) w2p[i / H2][i % H2] = w2[i];
   for (int i = tid; i < H2 * H3; i += kThreads) w3p[i / H3][i % H3] = w3[i];
   for (int i = tid; i < kTile * H3; i += kThreads) {
@@ -603,16 +761,8 @@ fused_sa_bwd_kernel(const float4* __restrict__ pts, const float* __restrict__ a,
   }
   for (int i = tid; i < kTile * (H1 + 1); i += kThreads) sdbc[i] = 0.0f;
   for (int i = tid; i < H3 + H2; i += kThreads) sdb[i] = 0.0f;
-  // this lane's recompute weights, in registers: W2 column lane, W3 columns
-  // lane and lane + 32
-  float w2c[H1], w3lo[H2], w3hi[H2];
-#pragma unroll
-  for (int k = 0; k < H1; ++k) w2c[k] = __ldg(w2 + k * H2 + lane);
-#pragma unroll
-  for (int k = 0; k < H2; ++k) {
-    w3lo[k] = __ldg(w3 + k * H3 + lane);
-    w3hi[k] = __ldg(w3 + k * H3 + lane + 32);
-  }
+  LaneWeights lw;  // this lane's recompute weights
+  lw.load(w2, w3, lane);
   DwSums<H1, H2, H3, BF16> dw;
   float db3_lo = 0.0f, db3_hi = 0.0f, db2_c = 0.0f;  // columns lane, lane + 32; unit lane
 
@@ -620,7 +770,7 @@ fused_sa_bwd_kernel(const float4* __restrict__ pts, const float* __restrict__ a,
   for (int c = 0; c < nc; ++c) {
     if (!act[(size_t)c * ntiles]) continue;
     const int j0 = c * kChunk;
-    const int total = list_pairs(s, slist, (float*)nullptr, pts, b, n, j0, r2max);
+    const int total = list_pairs(s, spts, slist, &s_count, pts, b, n, j0, r2max);
 
     for (int base = 0; base < total; base += kRound) {
       const int live = min(kRound, total - base);
@@ -646,41 +796,12 @@ fused_sa_bwd_kernel(const float4* __restrict__ pts, const float* __restrict__ a,
         if (r + 1 < r_end) {
           a_next = __ldg(a + ((size_t)b * n + j0 + slist[base + r + 1] / kTile) * H1 + lane);
         }
-        const float d2 = sq_dist(s.pts[i], s.cts[t]);  // the forward's bits
+        const float d2 = sq_dist(spts[i], s.cts[t]);  // the forward's bits
 
-        // layer 1, unit lane: pair_layer1's value
-        const float h1 = relu(a_j + s.bc[t * (H1 + 1) + lane]);
-        rows.h1[r][lane] = to_cd<BF16>(h1);
-        __syncwarp();
-        // layer 2, unit lane: pair_layer2's chain
-        float acc2 = 0.0f;
-#pragma unroll
-        for (int k4 = 0; k4 < H1 / 4; ++k4) {
-          const float4 hv = *reinterpret_cast<const float4*>(&rows.h1[r][4 * k4]);
-          acc2 = __fmaf_rn(hv.x, w2c[4 * k4 + 0], acc2);
-          acc2 = __fmaf_rn(hv.y, w2c[4 * k4 + 1], acc2);
-          acc2 = __fmaf_rn(hv.z, w2c[4 * k4 + 2], acc2);
-          acc2 = __fmaf_rn(hv.w, w2c[4 * k4 + 3], acc2);
-        }
-        const float h2 = relu(acc2 + s.b2[lane]);
-        rows.h2[r][lane] = to_cd<BF16>(h2);
-        __syncwarp();
-        // layer 3, columns lane and lane + 32: pair_layer3's chain
-        float v_lo = 0.0f, v_hi = 0.0f;
-#pragma unroll
-        for (int k4 = 0; k4 < H2 / 4; ++k4) {
-          const float4 hv = *reinterpret_cast<const float4*>(&rows.h2[r][4 * k4]);
-          v_lo = __fmaf_rn(hv.x, w3lo[4 * k4 + 0], v_lo);
-          v_hi = __fmaf_rn(hv.x, w3hi[4 * k4 + 0], v_hi);
-          v_lo = __fmaf_rn(hv.y, w3lo[4 * k4 + 1], v_lo);
-          v_hi = __fmaf_rn(hv.y, w3hi[4 * k4 + 1], v_hi);
-          v_lo = __fmaf_rn(hv.z, w3lo[4 * k4 + 2], v_lo);
-          v_hi = __fmaf_rn(hv.z, w3hi[4 * k4 + 2], v_hi);
-          v_lo = __fmaf_rn(hv.w, w3lo[4 * k4 + 3], v_lo);
-          v_hi = __fmaf_rn(hv.w, w3hi[4 * k4 + 3], v_hi);
-        }
-        v_lo = relu(v_lo + s.b3[lane]);
-        v_hi = relu(v_hi + s.b3[lane + 32]);
+        // the forward's activations, the rounded inputs staged as the round's rows
+        float h1, h2, v_lo, v_hi;
+        pair_recompute<BF16>(lw, a_j, s.bc[t * (H1 + 1) + lane], s.b2, s.b3, rows.h1[r], rows.h2[r],
+                             h1, h2, v_lo, v_hi);
 
         // select by equality with the forward
         const float g_lo = d2 < s.r2[lane] && v_lo > 0.0f && v_lo == tr.out[t][lane] ? tr.g[t][lane] : 0.0f;
@@ -768,8 +889,9 @@ cudaError_t launch_fwd(const float* pts, const float* a, const float* cts, const
   return cudaGetLastError();
 }
 
+// n < 2^27: the forward's pair list packs (j << 4) | t into an int
 bool valid_shape(int b, int n, int p, int chunk, int tile) {
-  return b > 0 && n > 0 && p > 0 && chunk == kChunk && tile == kTile && b <= 65535;
+  return b > 0 && n > 0 && n < (1 << 27) && p > 0 && chunk == kChunk && tile == kTile && b <= 65535;
 }
 
 bool compiled_widths(int h1, int h2, int h3) { return h1 == 32 && h2 == 32 && h3 == 64; }

@@ -16,6 +16,8 @@ PyTorch twin that a CPU tensor runs:
 
 * ``block_min_d2`` (``csrc/min_d2.cu``): the culling pre-pass, min d^2 over
   each chunk of consecutive points for every centre;
+  ``block_min_d2_and_cull`` runs the same kernel and also writes the
+  culling bitmap (``cull_bitmap`` of its output) from the same launch;
 * ``fused_sa_core`` (``csrc/fused_sa.cu``): the forward itself, skipping the
   (chunk, centre tile) blocks that ``cull_bitmap`` rules out;
 * ``fused_sa_argmax`` (same source): the forward plus each column's winning
@@ -55,6 +57,7 @@ from ._cuda import CudaKernel, check_cuda
 __all__ = [
     "ball_mlp_max",
     "block_min_d2",
+    "block_min_d2_and_cull",
     "cull_bitmap",
     "fused_sa_core",
     "fused_sa_argmax",
@@ -81,7 +84,7 @@ BACKWARDS = ("kernel", "argmax")
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
-MIN_D2_KERNEL = CudaKernel("min_d2", "min_d2", "deepclr_min_d2", [_P, _P, _P, _I, _I, _I, _I])
+MIN_D2_KERNEL = CudaKernel("min_d2", "min_d2", "deepclr_min_d2", [_P] * 4 + [_I] * 5 + [_F])
 FUSED_SA_KERNEL = CudaKernel("fused_sa", "fused_sa", "deepclr_fused_sa", [_P] * 11 + [_I] * 8 + [_F, _I])
 FUSED_SA_ARGMAX_KERNEL = CudaKernel(
     "fused_sa_argmax", "fused_sa", "deepclr_fused_sa_argmax", [_P] * 12 + [_I] * 8 + [_F, _I])
@@ -134,30 +137,56 @@ def _pack_points(xyz: torch.Tensor, mask: Optional[torch.Tensor]) -> torch.Tenso
     return torch.cat([xyz, inval[..., None]], dim=-1).contiguous()
 
 
+def _launch_min_d2(name, pts4, centers, r2max=None):
+    """The pre-pass kernel -> (min_d2, the bitmap or None); with ``r2max``
+    it also writes the bitmap."""
+    centers = centers.contiguous()
+    check_cuda(name, pts4, centers)
+    b, n, _ = pts4.shape
+    p = centers.shape[1]
+    nc = -(-n // CHUNK)
+    out = torch.empty((b, nc, p), dtype=torch.float32, device=pts4.device)
+    active = None if r2max is None else torch.empty((b, nc, -(-p // TILE)), dtype=torch.uint8,
+                                                    device=pts4.device)
+    MIN_D2_KERNEL.launch(pts4.device, pts4.data_ptr(), centers.data_ptr(), out.data_ptr(),
+                         None if active is None else active.data_ptr(), b, n, p, CHUNK, TILE,
+                         0.0 if r2max is None else float(r2max))
+    return out, active
+
+
+def _check_pre_pass_shapes(name, pts4, centers):
+    if pts4.dim() != 3 or pts4.shape[-1] != 4 or centers.shape[-1] != 3:
+        raise ValueError(f"{name}: expected pts4 (B, N, 4) and centers (B, P, 3)")
+
+
 def block_min_d2(pts4: torch.Tensor, centers: torch.Tensor) -> torch.Tensor:
     """Culling pre-pass.  pts4 (B, N, 4) = x, y, z, BIG*invalid; centers
     (B, P, 3) -> (B, ceil(N/CHUNK), P): the min over each chunk of CHUNK
     consecutive points of d^2 + BIG*invalid.  A ragged last chunk takes the
     min over the points it has."""
-    if pts4.dim() != 3 or pts4.shape[-1] != 4 or centers.shape[-1] != 3:
-        raise ValueError("block_min_d2: expected pts4 (B, N, 4) and centers (B, P, 3)")
+    _check_pre_pass_shapes("block_min_d2", pts4, centers)
     if not pts4.is_cuda:
         return _block_min_d2_plain(pts4, centers)
-    centers = centers.contiguous()
-    check_cuda("block_min_d2", pts4, centers)
-    b, n, _ = pts4.shape
-    p = centers.shape[1]
-    out = torch.empty((b, -(-n // CHUNK), p), dtype=torch.float32, device=pts4.device)
-    MIN_D2_KERNEL.launch(pts4.device, pts4.data_ptr(), centers.data_ptr(), out.data_ptr(),
-                         b, n, p, CHUNK)
-    return out
+    return _launch_min_d2("block_min_d2", pts4, centers)[0]
+
+
+def block_min_d2_and_cull(pts4: torch.Tensor, centers: torch.Tensor, r2max: float):
+    """The pre-pass and its culling bitmap -> (min_d2, active), equal to
+    ``(block_min_d2(pts4, centers), cull_bitmap(min_d2, r2max))``; on the
+    card one launch writes both."""
+    _check_pre_pass_shapes("block_min_d2_and_cull", pts4, centers)
+    if not pts4.is_cuda:
+        min_d2 = _block_min_d2_plain(pts4, centers)
+        return min_d2, cull_bitmap(min_d2, r2max)
+    return _launch_min_d2("block_min_d2_and_cull", pts4, centers, r2max)
 
 
 def cull_bitmap(min_d2: torch.Tensor, r2max: float) -> torch.Tensor:
     """Fold the pre-pass into a visit bitmap (B, n_chunks, ceil(P/TILE))
     uint8: a (chunk, centre tile) block is visited unless even its closest
     pair, shrunk by a 1% + 1e-3 margin, lies outside the largest radius.
-    The margin only adds visits; the kernel tests every pair exactly."""
+    The margin only adds visits; the kernel tests every pair exactly.  The
+    plain twin of the bitmap ``block_min_d2_and_cull`` writes on the card."""
     b, nc, p = min_d2.shape
     pad = -p % TILE
     if pad:
@@ -452,8 +481,8 @@ def ball_mlp_max(xyz: torch.Tensor, centers: torch.Tensor, weights, biases, radi
     xyz (B, N, 3) float32, centers (B, P, 3), weights/biases per layer in
     (in, out) layout, radius a float or one per output column, optional
     features (B, N, F) and validity mask (B, N) -> (B, P, H_last) float32.
-    On the card: the culling pre-pass kernel, the bitmap fold, then the
-    fused kernel (its argmax variant under ``backward="argmax"``) and, in
+    On the card: the culling pre-pass kernel (it writes the bitmap too), then
+    the fused kernel (its argmax variant under ``backward="argmax"``) and, in
     the backward, ``fused_sa_bwd``; on the CPU: the plain twins.  Centres
     are treated as constants of the ball (no gradient flows through the
     radius test); their layer-1 term does get its gradient.
@@ -461,5 +490,5 @@ def ball_mlp_max(xyz: torch.Tensor, centers: torch.Tensor, weights, biases, radi
     if backward not in BACKWARDS:
         raise ValueError(f"ball_mlp_max: backward must be one of {BACKWARDS}, got {backward!r}")
     op = prepare(xyz, centers, weights, biases, radius, features, mask, compute_dtype)
-    active = cull_bitmap(block_min_d2(op.pts4, op.centers), op.r2max) if op.pts4.is_cuda else None
+    active = block_min_d2_and_cull(op.pts4, op.centers, op.r2max)[1] if op.pts4.is_cuda else None
     return _FusedSA.apply(op, active, backward, op.a, op.bc, *op.tail_w, *op.tail_b)

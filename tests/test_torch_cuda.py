@@ -95,6 +95,24 @@ def test_min_d2_kernel_exact(dev, n, p):
     np.testing.assert_array_equal(got.cpu().numpy(), ref.numpy())
 
 
+# the path's shapes (16384 -> 1024); ragged chunks and tiles; grid clouds
+# whose integer d^2 tie with r2max = 1
+@pytest.mark.parametrize("n,p,grid", [(16384, 1024, False), (1000, 300, True), (1000, 40, False)])
+def test_min_d2_cull_kernel_equals_twin(dev, n, p, grid):
+    """One launch writes min-d^2 and the culling bitmap; both equal the
+    plain path's, and the bitmap equals cull_bitmap of the kernel's min-d^2."""
+    xyz = ops.spatial_sort(_cloud(2, n, seed=3, grid=grid))[0]
+    centers = xyz[:, ::n // p][:, :p].contiguous()
+    pts4 = fused_sa._pack_points(xyz, _mask(2, n))
+    counts = dict(ops.launch_counts())
+    got_d2, got = fused_sa.block_min_d2_and_cull(pts4.to(dev), centers.to(dev), 1.0)
+    assert ops.launch_counts()["min_d2"] == counts["min_d2"] + 1
+    ref_d2, ref = fused_sa.block_min_d2_and_cull(pts4, centers, 1.0)
+    assert torch.equal(got_d2.cpu(), ref_d2) and torch.equal(got.cpu(), ref)
+    assert torch.equal(got, fused_sa.cull_bitmap(got_d2, 1.0))
+    assert 0 < ref.float().mean() < 1 and not ref[1].any()
+
+
 def _bundle(widths, seed):
     rng = np.random.default_rng(seed)
     dims = [4, *widths]
@@ -154,8 +172,7 @@ def _sa_operands(n, p, dtype, seed, dev, tie_at_zero=False, dense=False):
         b[-1][:8] = -100.0
     op = fused_sa.prepare(xyz.to(dev), centers.to(dev), [x.to(dev) for x in w], [x.to(dev) for x in b],
                           radius, feats.to(dev), _mask(3, n).to(dev), dtype)
-    active = fused_sa.cull_bitmap(fused_sa.block_min_d2(op.pts4, op.centers), op.r2max) if op.pts4.is_cuda \
-        else None
+    active = fused_sa.block_min_d2_and_cull(op.pts4, op.centers, op.r2max)[1] if op.pts4.is_cuda else None
     return op, active
 
 
@@ -184,7 +201,10 @@ def test_fused_sa_argmax_kernel_matches_plain(dev, n, p, dtype, tie_at_zero):
 
 # The kernel sums dW, db, dbc and da with atomics, in an order that changes
 # from run to run; 1e-4 of each result's scale bounds that float32 spread.
-@pytest.mark.parametrize("n,p,dense", [(4096, 512, False), (1000, 40, False), (4096, 512, True)])
+# B4 is fed B2's output, so its recompute must select B2's winners; the
+# path's shape (16384 -> 1024) and dense balls included.
+@pytest.mark.parametrize("n,p,dense", [(4096, 512, False), (1000, 40, False), (4096, 512, True),
+                                       (16384, 1024, False)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("tie_at_zero", [False, True])
 def test_fused_sa_bwd_kernel_matches_plain(dev, n, p, dense, dtype, tie_at_zero):
@@ -205,7 +225,7 @@ def test_fused_sa_backward_kernels_reject_uncompiled_widths(dev):
     w, b, radius = _bundle((8, 8, 16), seed=6)
     op = fused_sa.prepare(xyz, xyz[:, :16].contiguous(), [x.to(dev) for x in w], [x.to(dev) for x in b],
                           radius, compute_dtype=torch.float32)
-    active = fused_sa.cull_bitmap(fused_sa.block_min_d2(op.pts4, op.centers), op.r2max)
+    active = fused_sa.block_min_d2_and_cull(op.pts4, op.centers, op.r2max)[1]
     with pytest.raises(ValueError, match="not compiled"):
         fused_sa.fused_sa_argmax(op, active)
     with pytest.raises(ValueError, match="not compiled"):
