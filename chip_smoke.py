@@ -49,7 +49,29 @@ Phases, in order; any failure raises and exits non-zero:
    B4 (and B2) on the dense case beside the sparse one; min-d^2 also
    without the bitmap, and with a second bound at the float32 issue rate;
    the counts the fused forward's design rests on (kept chunks a tile,
-   in-radius pairs a kept (chunk, tile) block).
+   in-radius pairs a kept (chunk, tile) block);
+7. scenario inference: packs written with the port's PackWriter into a
+   temporary directory (two 8-frame KITTI-like sequences of 120000 points a
+   frame, about an HDL-64 scan, poses advancing by small random rigid
+   motions, so every frame is subsampled; one generic pack of 8 pairs of
+   12000-point clouds, which are padded) go through inference.run_scenario
+   with the flagship model: sequential at 1 and 2 lanes with float32 and
+   uint16 uploads, pairwise one pair a call and 4 pairs a call.  Checks:
+   7 rows a sequence file and 8 a pair file, all finite; the Evaluator's
+   step errors finite; uint16 within 2e-2 of float32 (the bound of
+   tests/model/test_upload_quant.py) and 4 pairs a call within 2e-2 of one
+   pair a call, on the normalised dual-quaternion labels of the written
+   transforms; fps, min_d2 and fused_sa launched in the phase; a 2-lane
+   BatchedSequentialHelper within 2e-2 of two ModelInferenceHelpers seeded
+   0 and 1 (every kernel works per cloud, but cuBLAS picks its GEMM by the
+   row count, so the lanes' float32 sums may run in another order before a
+   bf16 rounding: the card-vs-CPU bf16 bound); a presorted flagship model on
+   2 pairs x 4096 within 2e-2 of the same model on the CPU.  Timing (host
+   clock, each step ending in a fetch): the per-frame sequential step at 1,
+   2 and 8 lanes from raw 120000-point frames (median, and its share a
+   lane), its host split (pad/subsample, stack/quantise, upload, device
+   step, fetch), and pairwise pairs/s at 16 pairs a call from raw
+   120000-point clouds beside phase 6's device-resident forward.
 
 Prints JSON lines; the one before the last two lists the kernels, then the
 card's name and power limit, and the last is {"ok": true, "device": {...}}.
@@ -57,9 +79,12 @@ Imports nothing of jax or deepclr_tpu.
 """
 import copy
 import json
+import logging
+import os.path as osp
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -82,6 +107,11 @@ TPU_KERNELS = {
 SERVING_KERNELS = ("fps", "min_d2", "fused_sa")
 TRAIN_KERNELS = ("fps", "min_d2", "fused_sa", "fused_sa_bwd")
 FPS_BATCHES = (32, 10, 1)     # FPS's path shapes: serving encode (2B), train encode (2B), sequential step
+SCENE_POINTS = 120_000        # a frame of about an HDL-64 scan: subsampled to NPTS
+SCENE_FRAMES = 8              # frames a sequence: 7 registrations
+SCENE_PAIRS, PAIR_POINTS = 8, 12_000  # the pair pack: clouds that fit NPTS, so padded
+SCENE_LANES = (1, 2, 8)
+SCENE_TOL = 2e-2
 
 
 def emit(obj):
@@ -678,6 +708,226 @@ def bwd_dense_timing(model, dev):
             "fused_sa_device_ms": fwd_device_ms}
 
 
+def write_scene_packs(tmp):
+    """Phase 7's packs: two KITTI-like sequences and one pair pack.
+    Returns the sequences' raw frames."""
+    from deepclr_tpu_torch.data import PackWriter
+    from deepclr_tpu_torch.synthetic import kitti_like_sequence
+
+    frames = {}
+    for k, seq in enumerate(("00", "01")):
+        clouds, poses = kitti_like_sequence(SCENE_FRAMES, SCENE_POINTS, seed=60 + k)
+        frames[seq] = clouds
+        with PackWriter(osp.join(tmp, f"{seq}.pack")) as w:
+            for i, (cloud, pose) in enumerate(zip(clouds, poses)):
+                w.put(f"{i:06d}", {"idx": i, "timestamp": i * 1e5, "pose": pose, "cloud": cloud})
+    clouds, poses = kitti_like_sequence(SCENE_PAIRS + 1, PAIR_POINTS, seed=62)
+    with PackWriter(osp.join(tmp, "08.pack")) as w:
+        for i in range(SCENE_PAIRS):
+            w.put(f"{i:06d}", {"idx": [i, i + 1], "timestamps": [i * 1e5, (i + 1) * 1e5],
+                               "clouds": [clouds[i], clouds[i + 1]],
+                               "transform": np.linalg.inv(poses[i]) @ poses[i + 1]})
+    return frames
+
+
+def pred_labels(ev):
+    """Normalised dual-quaternion labels of an Evaluator's predicted transforms, sequence by sequence."""
+    from deepclr_tpu_torch.geometry import LabelType
+    from deepclr_tpu_torch.geometry.hostmath import label_from_matrix_np
+
+    return {name: label_from_matrix_np(LabelType.POSE3D_DUAL_QUAT, np.array(seq.prediction.transforms))
+            for name, seq in ev.get_sequences().items()}
+
+
+def label_err(a, b):
+    if a.keys() != b.keys() or any(a[k].shape != b[k].shape for k in a):
+        raise AssertionError(f"scenario: different sequences or row counts {a.keys()} / {b.keys()}")
+    return max(float(np.abs(a[k] - b[k]).max()) for k in a)
+
+
+def check_scenario_run(tag, ev, rows):
+    """Rows a file, every written value finite, the step errors finite."""
+    for name, n in rows.items():
+        seq = ev.get_sequence(name)
+        vals = np.array([[s, *p[:3].ravel(), *g[:3].ravel(), t] for s, p, g, t in
+                         zip(seq.stamps, seq.prediction.transforms, seq.ground_truth.transforms, seq.times)])
+        if vals.shape != (n, 26) or not np.isfinite(vals).all():
+            raise AssertionError(f"scenario {tag} {name}: rows {vals.shape}, finite {np.isfinite(vals).all()}")
+    total = ev.get_total_step_errors()
+    errs = np.array([[x.translation.kitti, x.rotation.kitti, x.translation.rmse, x.rotation.chordal] for x in total])
+    if len(total) != sum(rows.values()) or not np.isfinite(errs).all():
+        raise AssertionError(f"scenario {tag}: {len(total)} step errors, finite {np.isfinite(errs).all()}")
+    return {"step_t_kitti_mean_m": float(total.mean.translation.kitti),
+            "step_r_kitti_mean_rad": float(total.mean.rotation.kitti)}
+
+
+def check_lanes(model, frames):
+    """A 2-lane BatchedSequentialHelper against two ModelInferenceHelpers
+    seeded as its lanes; returns the largest label difference."""
+    from deepclr_tpu_torch.models import BatchedSequentialHelper, ModelInferenceHelper
+
+    batched = BatchedSequentialHelper(model, batch=2, num_points=NPTS, seed=0)
+    singles = [ModelInferenceHelper(model, is_sequential=True, num_points=NPTS, seed=i) for i in range(2)]
+    worst = 0.0
+    for t in range(SCENE_FRAMES):
+        fr = [frames["00"][t], frames["01"][t]]
+        got = batched.step(fr)
+        for i, single in enumerate(singles):
+            ref = single.predict(fr[i])
+            if (got[i] is None) != (ref is None) or (t == 0) != (ref is None):
+                raise AssertionError(f"lanes: frame {t} lane {i}: {got[i]} vs {ref}")
+            if ref is not None:
+                worst = max(worst, float(np.abs(got[i] - ref).max()))
+    return worst
+
+
+def check_presorted(dev):
+    """A presorted flagship model on the card against the same model on
+    the CPU, 2 pairs x 4096 points (the host Morton-sorts them, the first
+    stage skips its device sort)."""
+    from deepclr_tpu_torch.configs import KITTI_MODEL_CFG
+    from deepclr_tpu_torch.models import ModelInferenceHelper, build_model
+    from deepclr_tpu_torch.synthetic import kitti_like
+
+    cfg = copy.deepcopy(KITTI_MODEL_CFG)
+    cfg["params"]["presorted"] = True
+    t, s = kitti_like(2, 4096, seed=7), kitti_like(2, 4096, seed=8)
+    ys = [ModelInferenceHelper(build_model(cfg, device=d, seed=0), num_points=4096).predict_batch(list(s), list(t))
+          for d in (dev, "cpu")]
+    return float(np.abs(ys[0] - ys[1]).max())
+
+
+def run_scenario_phase(model, dev):
+    """Phase 7, checks: the scenario path through inference.run_scenario."""
+    from deepclr_tpu_torch import inference, ops
+    from deepclr_tpu_torch.evaluation import scenario_from_dict
+
+    quiet = logging.getLogger("chip_smoke.scenario")  # run_scenario's progress lines: warnings only
+    start = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        frames = write_scene_packs(tmp)
+        packs_s = time.perf_counter() - t0
+        seq_scen = scenario_from_dict({"name": "kitti_like_00-01", "dataset_type": "kitti_odometry_velodyne",
+                                       "sequential": True, "data": {s: osp.join(tmp, f"{s}.pack") for s in frames}})
+        pair_scen = scenario_from_dict({"name": "kitti_like_pairs", "dataset_type": "generic", "sequential": False,
+                                        "data": {"08": osp.join(tmp, "08.pack")}})
+        ops.reset_launch_counts()
+        seq_runs = {(lanes, dt): inference.run_scenario(seq_scen, model, NPTS, dt, lanes, quiet)
+                    for lanes in (1, 2) for dt in ("float32", "uint16")}
+        pair_runs = {b: inference.run_scenario(pair_scen, model, NPTS, "float32", b, quiet) for b in (1, 4)}
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+    missing = [k for k in SERVING_KERNELS if counts.get(k, 0) < 1]
+    if missing:
+        raise AssertionError(f"scenario inference: kernels {missing} never launched ({counts})")
+    seq_rows = {s: SCENE_FRAMES - 1 for s in frames}
+    step_errors = {f"{lanes}_lanes_{dt}": check_scenario_run(f"{lanes} lanes {dt}", ev, seq_rows)
+                   for (lanes, dt), ev in seq_runs.items()}
+    step_errors.update({f"pairwise_{b}_a_call": check_scenario_run(f"pairwise B={b}", ev, {"08": SCENE_PAIRS})
+                        for b, ev in pair_runs.items()})
+    errs = {f"uint16_vs_float32_{lanes}_lanes": label_err(pred_labels(seq_runs[(lanes, "uint16")]),
+                                                          pred_labels(seq_runs[(lanes, "float32")]))
+            for lanes in (1, 2)}
+    errs["pairwise_4_vs_1_a_call"] = label_err(pred_labels(pair_runs[4]), pred_labels(pair_runs[1]))
+    errs["2_lanes_vs_per_lane_helpers"] = check_lanes(model, frames)
+    errs["presorted_card_vs_cpu"] = check_presorted(dev)
+    emit({"check": "scenario_inference", "frames": SCENE_FRAMES, "points_a_frame": SCENE_POINTS,
+          "pair_points": PAIR_POINTS, "pairs": SCENE_PAIRS, "max_abs_err": errs, "tolerance": SCENE_TOL,
+          "launches": counts, "step_errors": step_errors, "packs_written_s": packs_s,
+          "yaml_loaded": "yaml" in sys.modules, "matplotlib_loaded": "matplotlib" in sys.modules,
+          "seconds": time.perf_counter() - start})
+    bad = {k: v for k, v in errs.items() if not v <= SCENE_TOL}
+    if bad:
+        raise AssertionError(f"scenario inference: {bad} above {SCENE_TOL}")
+    return frames, counts
+
+
+def host_split(model, dev, streams, upload_dtype, reps=6):
+    """A sequential step's parts, each ended by a synchronise: the
+    helper's pad/subsample, stack (+ quantise for uint16), upload (+ the
+    device dequantisation), the device's encode_register, the fetch."""
+    from deepclr_tpu_torch.models import BatchedSequentialHelper
+    from deepclr_tpu_torch.models.base import device_batch, host_batch
+
+    helper = BatchedSequentialHelper(model, batch=len(streams), num_points=NPTS, upload_dtype=upload_dtype)
+    parts = {k: [] for k in ("pad_subsample", "stack_quantise", "upload", "device_step", "fetch")}
+    state = None
+    for t in range(reps + 2):
+        clouds = [s[t % SCENE_FRAMES] for s in streams]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        padded = helper.pad(clouds)
+        t1 = time.perf_counter()
+        host = host_batch(padded, upload_dtype)
+        t2 = time.perf_counter()
+        pts, mask = device_batch(host, dev)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        if state is None:
+            state = model.encode(pts, mask)
+            continue
+        y, state = model.encode_register(state, pts, mask)
+        torch.cuda.synchronize()
+        t4 = time.perf_counter()
+        y.cpu().numpy()
+        t5 = time.perf_counter()
+        if t >= 2:  # the first step is a warm-up
+            for k, (a, b) in zip(parts, ((t0, t1), (t1, t2), (t2, t3), (t3, t4), (t4, t5))):
+                parts[k].append((b - a) * 1e3)
+    return {k: statistics.median(v) for k, v in parts.items()}
+
+
+def time_scenario(model, dev, frames, forward_pairs_per_s, card):
+    """Phase 7, timing: sequential steps from raw frames at 1, 2 and 8
+    lanes with their host split, and pairwise pairs/s from raw clouds."""
+    from deepclr_tpu_torch.models import BatchedSequentialHelper, ModelInferenceHelper, pad_cloud
+    from deepclr_tpu_torch.models.base import device_batch, host_batch
+
+    start = time.perf_counter()
+    seqs = list(frames.values())
+    lanes_out = {}
+    for lanes in SCENE_LANES:
+        streams = [seqs[i % len(seqs)] for i in range(lanes)]
+        for dt in ("float32", "uint16"):
+            helper = BatchedSequentialHelper(model, batch=lanes, num_points=NPTS, upload_dtype=dt)
+            each = []
+            for t in range(SCENE_FRAMES):
+                t0 = time.perf_counter()
+                helper.step([s[t] for s in streams])  # returns host arrays: the fetch synchronises
+                each.append((time.perf_counter() - t0) * 1e3)
+            steady = each[2:]  # frame 0 only encodes; frame 1 is a warm-up
+            med = statistics.median(steady)
+            lanes_out[f"{lanes}_{dt}"] = {"lanes": lanes, "upload_dtype": dt, "step_ms_median": med,
+                                          "per_lane_ms": med / lanes, "step_ms_each": steady,
+                                          "host_split_ms": host_split(model, dev, streams, dt)}
+    raw = seqs[0] + seqs[1]  # 16 raw 120000-point clouds
+    helper = ModelInferenceHelper(model, num_points=NPTS)
+    templates, sources = raw, raw[1:] + raw[:1]
+    helper.predict_batch(sources, templates)
+    calls = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        helper.predict_batch(sources, templates)
+        calls.append((time.perf_counter() - t0) * 1e3)
+    # the call's host part: pad/subsample the 2B clouds, then one upload
+    rng = np.random.default_rng(0)
+    t0 = time.perf_counter()
+    padded = [pad_cloud(c, NPTS, rng) for c in templates + sources]
+    t1 = time.perf_counter()
+    device_batch(host_batch(padded, "float32"), dev)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    med = statistics.median(calls)
+    emit({"scenario_timing": {
+        "sequential_from_raw_frames": lanes_out, "points_a_frame": SCENE_POINTS, "num_points": NPTS,
+        "pairwise_raw": {"pairs_a_call": len(raw), "call_ms_median": med, "call_ms_each": calls,
+                         "pairs_per_s": len(raw) / (med / 1e3), "pad_subsample_2B_clouds_ms": (t1 - t0) * 1e3,
+                         "stack_upload_2B_clouds_ms": (t2 - t1) * 1e3,
+                         "device_resident_forward_pairs_per_s": forward_pairs_per_s},
+        "seconds": time.perf_counter() - start}, "card": card})
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke needs a CUDA card",
@@ -718,6 +968,9 @@ def main():
     train_metrics, train_kernels = time_train(dev, train_model, opt, loss_fn, metric_fns, batches)
     kernels.update(train_kernels)
     emit({"metrics": {**metrics, **train_metrics}, "card": card})
+    with torch.inference_mode():
+        frames, _ = run_scenario_phase(model, dev)
+        time_scenario(model, dev, frames, metrics["forward_pairs_per_s"], card)
     launches = {**{k: serve_counts[k] for k in SERVING_KERNELS},
                 "fused_sa_bwd": train_counts["fused_sa_bwd"],
                 "fused_sa_argmax": argmax_counts["fused_sa_argmax"]}

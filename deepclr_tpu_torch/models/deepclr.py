@@ -30,20 +30,23 @@ class SetAbstraction(nn.Module):
     """1-2 stacked MSG set-abstraction stages.  Config lists are indexed by
     stage, e.g. npoint=[1024], radii=[[0.5, 1.0]], nsamples=[[512, 1024]],
     mlps=[[[16, 16, 32], [16, 16, 32]]].  ``nsamples`` caps the ball only on
-    the exact (index-based) path, which this package does not have."""
+    the exact (index-based) path, which this package does not have.
+    ``presorted``: the input is Morton-ordered by the host, so stage 0 skips
+    its point sort (later stages take FPS centres, never host-ordered)."""
 
     def __init__(self, input_dim: int, npoint: Sequence[int], radii, nsamples, mlps,
-                 batch_norm: bool = False, compute_dtype=torch.float32):
+                 batch_norm: bool = False, compute_dtype=torch.float32, presorted: bool = False):
         super().__init__()
         if not len(npoint) == len(radii) == len(nsamples) == len(mlps) or not 0 < len(npoint) <= 2:
             raise ValueError("SetAbstraction: 1-2 stages with one entry per stage in every list")
         if batch_norm:
             raise NotImplementedError("batch_norm in SetAbstraction is not supported by the fused path")
         self.num_stages = len(npoint)
+        self.presorted = bool(presorted)
         in_dim = input_dim
         for stage in range(self.num_stages):
             sa = SetAbstractionMSG(in_dim, npoint[stage], radii[stage], mlps[stage],
-                                   compute_dtype=compute_dtype)
+                                   compute_dtype=compute_dtype, presorted=self.presorted and stage == 0)
             self.add_module(f"_sa{stage}", sa)
             in_dim = 3 + sa.out_dim
 

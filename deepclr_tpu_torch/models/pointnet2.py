@@ -46,7 +46,7 @@ class SetAbstractionMSG(nn.Module):
     one MLP per scale; xyz offsets are always prepended to the features."""
 
     def __init__(self, in_dim: int, npoint: int, radii: Sequence[float],
-                 mlps: Sequence[Sequence[int]], compute_dtype=torch.float32):
+                 mlps: Sequence[Sequence[int]], compute_dtype=torch.float32, presorted: bool = False):
         super().__init__()
         if len(radii) != len(mlps):
             raise ValueError("one radius per MLP scale")
@@ -54,6 +54,10 @@ class SetAbstractionMSG(nn.Module):
         self.radii = tuple(float(r) for r in radii)
         self.mlps = nn.ModuleList([_ScaleMLP(in_dim, m) for m in mlps])
         self.compute_dtype = compute_dtype
+        # the input cloud is Morton-ordered by the host (ModelInferenceHelper
+        # pads it so): the point sort is skipped, the centre sort kept.  An
+        # unordered input only weakens the culling, never the result.
+        self.presorted = bool(presorted)
         # the fused op's backward: "kernel" (equality-select) or "argmax"
         self.backward = "kernel"
 
@@ -65,7 +69,7 @@ class SetAbstractionMSG(nn.Module):
                 mask: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
         """-> (new_xyz (B, npoint, 3), new_features (B, npoint, F))."""
         want_sorted = xyz.shape[1] >= SORT_MIN_POINTS
-        if want_sorted:
+        if want_sorted and not self.presorted:
             # Morton order makes point chunks compact, so the culling bites;
             # radius membership and max-pool are order-invariant
             xyz, features, mask = ops.spatial_sort(xyz, features, mask)

@@ -7,7 +7,7 @@ from .fps import furthest_point_sample
 from .fused_sa import ball_mlp_max, multi_scale_bundle
 from .grouping import gather_points, group_points
 from .knn import knn
-from .morton import morton_code, spatial_sort
+from .morton import morton_argsort_np, morton_code, spatial_sort
 from .pairwise import pairwise_sqdist
 
 __all__ = [
@@ -18,6 +18,7 @@ __all__ = [
     "group_points",
     "knn",
     "launch_counts",
+    "morton_argsort_np",
     "morton_code",
     "multi_scale_bundle",
     "pairwise_sqdist",

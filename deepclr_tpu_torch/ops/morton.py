@@ -9,9 +9,10 @@ the codes, their float32 quantisation and a stable sort.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
-__all__ = ["morton_code", "spatial_sort", "INVALID_CODE"]
+__all__ = ["morton_code", "morton_argsort_np", "spatial_sort", "INVALID_CODE"]
 
 _BITS = 10  # 10 bits per axis -> 30-bit codes
 INVALID_CODE = 0xFFFFFFFF  # sorts after every 30-bit code
@@ -39,6 +40,28 @@ def morton_code(xyz: torch.Tensor, mask=None) -> torch.Tensor:
     if mask is not None:
         code = torch.where(mask, code, torch.full_like(code, INVALID_CODE))
     return code
+
+
+def morton_argsort_np(xyz: np.ndarray) -> np.ndarray:
+    """Host (numpy) Morton argsort of one un-padded cloud: (N, >=3) -> (N,).
+
+    The host sorts a cloud once when it pads it, so a model built with
+    ``presorted`` skips the first stage's device point sort.  The cells are
+    ``morton_code``'s, but quantised in float64: the order can differ from
+    the device sort's (float32) at cell boundaries, and FPS starts at the
+    first point, so a presorted model is compared with a presorted model.
+    numpy's uint32 shifts wrap like the JAX package's.
+    """
+    q = xyz[:, :3].astype(np.float64)
+    lo = q.min(axis=0)
+    scale = (2 ** _BITS - 1) / max(float((q.max(axis=0) - lo).max()), 1e-6)
+    v = np.clip((q - lo) * scale, 0, 2 ** _BITS - 1).astype(np.uint32)
+    v = (v | (v << np.uint32(16))) & np.uint32(0x030000FF)
+    v = (v | (v << np.uint32(8))) & np.uint32(0x0300F00F)
+    v = (v | (v << np.uint32(4))) & np.uint32(0x030C30C3)
+    v = (v | (v << np.uint32(2))) & np.uint32(0x09249249)
+    code = (v[:, 0] << np.uint32(2)) | (v[:, 1] << np.uint32(1)) | v[:, 2]
+    return np.argsort(code, kind="stable")
 
 
 def spatial_sort(xyz: torch.Tensor, features=None, mask=None):

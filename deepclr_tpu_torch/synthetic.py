@@ -13,7 +13,7 @@ import torch
 
 from .geometry import se3
 
-__all__ = ["kitti_like", "train_batch"]
+__all__ = ["kitti_like", "kitti_like_sequence", "train_batch"]
 
 
 def kitti_like(batch: int, n: int, seed: int) -> np.ndarray:
@@ -23,6 +23,30 @@ def kitti_like(batch: int, n: int, seed: int) -> np.ndarray:
     pts = rng.normal(size=(batch, n, 3)).astype(np.float32) * np.array([30.0, 30.0, 2.0], np.float32)
     extra = rng.uniform(0.0, 1.0, size=(batch, n, 1)).astype(np.float32)
     return np.concatenate([pts, extra], axis=-1)
+
+
+def kitti_like_sequence(n_frames: int, n: int, seed: int):
+    """A drive through one KITTI-like scene of ``n`` points: the pose
+    advances by a small random rigid motion a frame (~1 m forward, a few
+    tenths of a degree of turn), and frame i sees the scene in its own
+    coordinates with 1 cm of sensor noise.  Returns (clouds: n_frames
+    (n, 4) float32 arrays, poses: n_frames (4, 4) float64 arrays)."""
+    rng = np.random.default_rng(seed)
+    scene = kitti_like(1, n, seed)[0]
+    pose = np.eye(4)
+    clouds, poses = [], []
+    for _ in range(n_frames):
+        local = scene.copy()
+        local[:, :3] = ((scene[:, :3] - pose[:3, 3]) @ pose[:3, :3]).astype(np.float32)
+        local[:, :3] += rng.normal(size=(n, 3)).astype(np.float32) * 0.01
+        clouds.append(local)
+        poses.append(pose.copy())
+        yaw = rng.normal() * 0.005
+        step = np.eye(4)
+        step[:2, :2] = [[np.cos(yaw), -np.sin(yaw)], [np.sin(yaw), np.cos(yaw)]]
+        step[:3, 3] = [1.0 + 0.1 * rng.normal(), 0.05 * rng.normal(), 0.01 * rng.normal()]
+        pose = pose @ step
+    return clouds, poses
 
 
 def train_batch(batch: int, n: int, seed: int) -> Dict[str, np.ndarray]:

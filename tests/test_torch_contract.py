@@ -28,6 +28,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert "deepclr_tpu_torch.models.deepclr" in modules and "deepclr_tpu_torch.ops._cuda" in modules
     assert {"deepclr_tpu_torch.losses", "deepclr_tpu_torch.solver.optimizers", "deepclr_tpu_torch.solver.build",
             "deepclr_tpu_torch.engine.trainer", "deepclr_tpu_torch.engine.checkpoint"} <= set(modules)
+    assert {"deepclr_tpu_torch.inference", "deepclr_tpu_torch.config.schema", "deepclr_tpu_torch.data.pack",
+            "deepclr_tpu_torch.data.datasets", "deepclr_tpu_torch.evaluation.evaluator",
+            "deepclr_tpu_torch.evaluation.plot", "deepclr_tpu_torch.geometry.hostmath",
+            "deepclr_tpu_torch.utils.logging", "deepclr_tpu_torch.utils.path"} <= set(modules)
     code = (
         "import importlib, json, sys\n"
         f"for m in {modules!r}: importlib.import_module(m)\n"
@@ -97,7 +101,6 @@ def test_init_params_is_seeded():
 
 
 @pytest.mark.parametrize("change", [
-    ("params", "presorted", True),
     ("params", "fused", False),
     ("params", "batch_norm", True),
     ("merge", "k", 0),
@@ -109,6 +112,33 @@ def test_build_rejects_configs_outside_the_slice(change):
     section[key] = value
     with pytest.raises(NotImplementedError):
         build_model(cfg, device="cpu")
+
+
+def test_inference_entry_point_imports_without_yaml_or_matplotlib():
+    """The CLI module, the evaluation package and the helpers import with
+    PyYAML and matplotlib unavailable (the card machine may lack both)."""
+    code = (
+        "import sys\n"
+        "class Block:\n"
+        "    def find_spec(self, name, path=None, target=None):\n"
+        "        if name.split('.')[0] in ('yaml', 'matplotlib'):\n"
+        "            raise ImportError(name)\n"
+        "sys.meta_path.insert(0, Block())\n"
+        "import deepclr_tpu_torch.inference, deepclr_tpu_torch.evaluation, deepclr_tpu_torch.config\n"
+        "print(sorted(k for k in sys.modules if k.split('.')[0] in ('yaml', 'matplotlib')))\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    out = subprocess.run([sys.executable, "-c", code], env=env, cwd=REPO, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+
+
+def test_presorted_config_builds():
+    cfg = _small_cfg()
+    cfg["params"]["presorted"] = True
+    model = build_model(cfg, device="cpu")
+    assert model.cloud_features.presorted and model.cloud_features._sa0.presorted
 
 
 def _dropout_cfg():

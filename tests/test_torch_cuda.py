@@ -319,3 +319,40 @@ def test_model_on_card_matches_cpu(dev):
     assert counts == {"fps": 1, "min_d2": 1, "fused_sa": 1, "fused_sa_argmax": 0, "fused_sa_bwd": 0}
     y_cpu = ModelInferenceHelper(cpu, num_points=4096).predict_batch(clouds[:2], clouds[2:])
     np.testing.assert_allclose(y_card, y_cpu, atol=2e-2, rtol=0)
+
+
+def test_uint16_upload_dequantises_on_the_card(dev):
+    """The int16-bits upload widens and dequantises on the card to the
+    CPU's values."""
+    from deepclr_tpu_torch.models.base import device_batch, host_batch, pad_cloud
+
+    rng = np.random.default_rng(9)
+    padded = [pad_cloud((rng.normal(size=(20000, 4)) * [60, 60, 3, 1]).astype(np.float32), 16384, rng)
+              for _ in range(2)]
+    host = host_batch(padded, "uint16")
+    got, mask = device_batch(host, dev)
+    ref, ref_mask = device_batch(host, torch.device("cpu"))
+    assert got.is_cuda and got.dtype == torch.float32
+    assert torch.equal(got.cpu(), ref) and torch.equal(mask.cpu(), ref_mask)
+
+
+@pytest.mark.parametrize("presorted", [False, True])
+def test_batched_sequential_on_card_matches_cpu(dev, presorted):
+    """Two lanes of subsampled 5000-point frames, uint16 uploads, on the
+    card and on the CPU (the bf16 bound of test_model_on_card_matches_cpu)."""
+    from deepclr_tpu_torch.models import BatchedSequentialHelper
+
+    cfg = copy.deepcopy(KITTI_MODEL_CFG)
+    cfg["params"]["cloud_features"]["params"]["npoint"] = [256]
+    cfg["params"]["presorted"] = presorted
+    helpers = [BatchedSequentialHelper(build_model(cfg, device=d, seed=7), batch=2, num_points=4096,
+                                       upload_dtype="uint16") for d in ("cuda", "cpu")]
+    rng = np.random.default_rng(10)
+    for t in range(3):
+        frames = [np.concatenate([rng.normal(size=(5000, 3)) * [30, 30, 2], rng.uniform(size=(5000, 1))], 1)
+                  .astype(np.float32) for _ in range(2)]
+        got, ref = (h.step(frames) for h in helpers)
+        if t == 0:
+            assert got == ref == [None, None]
+        else:
+            np.testing.assert_allclose(np.stack(got), np.stack(ref), atol=2e-2, rtol=0)
