@@ -66,20 +66,47 @@ Phases, in order; any failure raises and exits non-zero:
    0 and 1 (every kernel works per cloud, but cuBLAS picks its GEMM by the
    row count, so the lanes' float32 sums may run in another order before a
    bf16 rounding: the card-vs-CPU bf16 bound); a presorted flagship model on
-   2 pairs x 4096 within 2e-2 of the same model on the CPU.  Timing (host
-   clock, each step ending in a fetch): the per-frame sequential step at 1,
+   2 pairs x 4096 within 2e-2 of the same model on the CPU; the flagship
+   at compute_dtype float32 within 1e-5 (the JAX contract) on both batch
+   checks, 2 lanes against per-lane helpers and 4 pairs a call against
+   one.  Timing (host clock, each step ending in a fetch): the per-frame sequential step at 1,
    2 and 8 lanes from raw 120000-point frames (median, and its share a
    lane), its host split (pad/subsample, stack/quantise, upload, device
    step, fetch), and pairwise pairs/s at 16 pairs a call from raw
-   120000-point clouds beside phase 6's device-resident forward.
+   120000-point clouds beside phase 6's device-resident forward;
+8. training from a YAML (outside inference mode, models of its own, in a
+   temporary directory): packs written as the repository's converters
+   write them (KITTI sequences 00 and 01 of 10 frames and 04 of 90 frames,
+   each a ray-cast HDL-64 scan of 120000 points along a driven path with
+   every 2nd point kept; ModelNet40 train.pack and test_seen.pack of CAD
+   clouds reduced to 2048 points by host FPS); YAMLs that extend the
+   shipped configs/training/kitti_synth.yaml and modelnet40.yaml (never
+   written) and override only the iteration count and the logging periods;
+   train(cfg), the function behind python -m deepclr_tpu_torch.training,
+   in this process for 8 micro-steps each, with
+   validation every 4 and after the final checkpoint, and the KITTI run
+   resumed from its ckpt.pt for 4 more.  Checks: the run directory's
+   artifacts (config.yaml, model_config.yaml, models/*.py, ckpt.pt and
+   weights.pt links, ckpt_final_N.pt, scalars.jsonl), the tags train/loss,
+   params/lr, val/loss_fn, val/step_t_err (and val/kitti_t_err for KITTI)
+   all finite, fps, min_d2, fused_sa and fused_sa_bwd launched in each run,
+   the run directory loaded as a model directory through
+   inference.run_scenario on the validation pack with finite rows, B2 and
+   B4 against their twins on a training batch of each recipe.  Timing: the
+   loader alone (0 workers, 6 threads, 6 spawned processes), the KITTI
+   micro-step (CUDA events around train_step) beside the loader wait,
+   validation ms a batch, timing.timing(cfg, sequential=True) on the
+   validation pack, and B1-B4 device time against their bounds with the
+   culling counts on a training batch of each recipe.
 
 Prints JSON lines; the one before the last two lists the kernels, then the
 card's name and power limit, and the last is {"ok": true, "device": {...}}.
-Imports nothing of jax or deepclr_tpu.
+Imports nothing of jax or of the deepclr_tpu package.
 """
 import copy
 import json
 import logging
+import os
 import os.path as osp
 import statistics
 import subprocess
@@ -97,6 +124,16 @@ F32_OPS_PER_S = 67e12         # float32 outside the tensor cores (a fused multip
 F32_ISSUE_PER_S = 33.5e12     # float32 instructions: 132 SMs x 128 lanes x 1.98 GHz
 BF16_OPS_PER_S = 989e12       # dense bf16 tensor cores
 FUSED_SA_PALLAS = "deepclr_tpu/ops/pallas/fused_sa_kernel.py"
+REPO = osp.dirname(osp.abspath(__file__))
+KITTI_YAML = "configs/training/kitti_synth.yaml"
+MODELNET_YAML = "configs/training/modelnet40.yaml"
+MN_CLOUDS, MN_POINTS = 10, 2048  # the ModelNet40 train encode: 2B = 10 clouds of 2048 points
+MN_RAW_POINTS = 10_000        # a PointNet++-preprocessed ModelNet40 model, reduced to MN_POINTS by host FPS
+MN_TRAIN, MN_TEST = 10, 5     # models in train.pack / test_seen.pack
+SCAN_POINTS = 120_000         # a ray-cast HDL-64 scan; the KITTI converter keeps every 2nd point
+# frames a sequence: 04, the validation drive, is 106 m long at 1.2 m a frame, past the
+# shortest KITTI segment (100 m), so its segment errors exist
+KITTI_SEQUENCES = {"00": 10, "01": 10, "04": 90}
 TPU_KERNELS = {
     "fps": ("deepclr_tpu_torch/csrc/fps.cu", "deepclr_tpu/ops/pallas/fps_kernel.py:93"),
     "min_d2": ("deepclr_tpu_torch/csrc/min_d2.cu", f"{FUSED_SA_PALLAS}:119"),
@@ -112,6 +149,7 @@ SCENE_FRAMES = 8              # frames a sequence: 7 registrations
 SCENE_PAIRS, PAIR_POINTS = 8, 12_000  # the pair pack: clouds that fit NPTS, so padded
 SCENE_LANES = (1, 2, 8)
 SCENE_TOL = 2e-2
+F32_BATCH_TOL = 1e-5          # batch invariance at float32: B lanes equal B single helpers (the JAX contract)
 
 
 def emit(obj):
@@ -172,17 +210,25 @@ def device_ms(fn, reps):
 def sa_operands(model, points, mask):
     """The first set-abstraction stage's steps up to the fused op, as
     SetAbstractionMSG.forward takes them: Morton sort, FPS, gather, centre
-    sort, multi-scale bundle."""
+    sort (both sorts only from SORT_MIN_POINTS points), multi-scale bundle;
+    no point features when the cloud has only xyz."""
     from deepclr_tpu_torch import ops
 
+    from deepclr_tpu_torch.models.pointnet2 import SORT_MIN_POINTS
+
     sa = model.cloud_features._sa0
-    xyz, feats, mask = ops.spatial_sort(points[..., :3].contiguous(), points[..., 3:], mask)
+    xyz, feats = points[..., :3].contiguous(), (points[..., 3:] if points.shape[-1] > 3 else None)
+    sort = points.shape[1] >= SORT_MIN_POINTS  # smaller clouds stay unsorted, as in the model
+    if sort:
+        xyz, feats, mask = ops.spatial_sort(xyz, feats, mask)
     idx = ops.furthest_point_sample(xyz, sa.npoint, mask)
-    centers = ops.spatial_sort(ops.gather_points(xyz, idx))[0]
+    centers = ops.gather_points(xyz, idx)
+    if sort:
+        centers = ops.spatial_sort(centers)[0]
     weights, biases, radius = ops.multi_scale_bundle(
         [[m.dense(i).weight.t() for i in range(m.depth)] for m in sa.mlps],
         [[m.dense(i).bias for i in range(m.depth)] for m in sa.mlps], sa.radii)
-    return dict(xyz=xyz.contiguous(), feats=feats.contiguous(), mask=mask, npoint=sa.npoint,
+    return dict(xyz=xyz.contiguous(), feats=None if feats is None else feats.contiguous(), mask=mask, npoint=sa.npoint,
                 centers=centers.contiguous(), weights=weights, biases=biases, radius=radius)
 
 
@@ -797,6 +843,22 @@ def check_presorted(dev):
     return float(np.abs(ys[0] - ys[1]).max())
 
 
+def check_float32_batch_invariance(dev, frames, pair_scen, quiet):
+    """The flagship at compute_dtype float32: a 2-lane BatchedSequentialHelper
+    against per-lane helpers, and 4 pairs a call against one, on phase 7's
+    frames and pair pack."""
+    from deepclr_tpu_torch import inference
+    from deepclr_tpu_torch.configs import KITTI_MODEL_CFG
+    from deepclr_tpu_torch.models import build_model
+
+    cfg = copy.deepcopy(KITTI_MODEL_CFG)
+    cfg["params"]["compute_dtype"] = "float32"
+    model = build_model(cfg, device=dev, seed=0)
+    runs = {b: inference.run_scenario(pair_scen, model, NPTS, "float32", b, quiet) for b in (1, 4)}
+    return {"2_lanes_vs_per_lane_helpers": check_lanes(model, frames),
+            "pairwise_4_vs_1_a_call": label_err(pred_labels(runs[4]), pred_labels(runs[1]))}
+
+
 def run_scenario_phase(model, dev):
     """Phase 7, checks: the scenario path through inference.run_scenario."""
     from deepclr_tpu_torch import inference, ops
@@ -818,6 +880,7 @@ def run_scenario_phase(model, dev):
         pair_runs = {b: inference.run_scenario(pair_scen, model, NPTS, "float32", b, quiet) for b in (1, 4)}
         torch.cuda.synchronize()
         counts = ops.launch_counts()
+        f32_errs = check_float32_batch_invariance(dev, frames, pair_scen, quiet)
     missing = [k for k in SERVING_KERNELS if counts.get(k, 0) < 1]
     if missing:
         raise AssertionError(f"scenario inference: kernels {missing} never launched ({counts})")
@@ -832,14 +895,16 @@ def run_scenario_phase(model, dev):
     errs["pairwise_4_vs_1_a_call"] = label_err(pred_labels(pair_runs[4]), pred_labels(pair_runs[1]))
     errs["2_lanes_vs_per_lane_helpers"] = check_lanes(model, frames)
     errs["presorted_card_vs_cpu"] = check_presorted(dev)
+    emit({"check": "batch_invariance_float32", "max_abs_err": f32_errs, "tolerance": F32_BATCH_TOL})
     emit({"check": "scenario_inference", "frames": SCENE_FRAMES, "points_a_frame": SCENE_POINTS,
           "pair_points": PAIR_POINTS, "pairs": SCENE_PAIRS, "max_abs_err": errs, "tolerance": SCENE_TOL,
           "launches": counts, "step_errors": step_errors, "packs_written_s": packs_s,
           "yaml_loaded": "yaml" in sys.modules, "matplotlib_loaded": "matplotlib" in sys.modules,
           "seconds": time.perf_counter() - start})
     bad = {k: v for k, v in errs.items() if not v <= SCENE_TOL}
+    bad.update({f"float32_{k}": v for k, v in f32_errs.items() if not v <= F32_BATCH_TOL})
     if bad:
-        raise AssertionError(f"scenario inference: {bad} above {SCENE_TOL}")
+        raise AssertionError(f"scenario inference: {bad} above {SCENE_TOL} (bf16) / {F32_BATCH_TOL} (float32)")
     return frames, counts
 
 
@@ -928,6 +993,403 @@ def time_scenario(model, dev, frames, forward_pairs_per_s, card):
         "seconds": time.perf_counter() - start}, "card": card})
 
 
+def modelnet_model_cfg():
+    """The model section of the shipped ModelNet40 recipe."""
+    import yaml
+
+    with open(osp.join(REPO, MODELNET_YAML)) as f:
+        return yaml.safe_load(f)["model"]
+
+
+def check_fwd_bwd(sa_op, active, tag):
+    """B2 within 1e-5 of its twin's scale, and B4, fed B2's output, within
+    1e-4 of each result's scale of its twin; returns the two largest
+    absolute errors."""
+    from deepclr_tpu_torch.ops import fused_sa
+
+    out = fused_sa.fused_sa_core(sa_op, active)
+    ref = fused_sa._fused_sa_plain(sa_op)
+    fwd_err = (out - ref).abs().max().item()
+    scale = max(1.0, ref.abs().max().item())
+    if not fwd_err <= 1e-5 * scale:
+        raise AssertionError(f"fused_sa {tag}: max |diff| {fwd_err} > {1e-5 * scale}")
+    g = torch.randn(out.shape, generator=torch.Generator().manual_seed(6)).to(out.device)
+    got = fused_sa.fused_sa_bwd(sa_op, active, out, g)
+    want = fused_sa._fused_sa_bwd_plain(sa_op, ref, g)
+    bwd_err = 0.0
+    for name, x, y in zip(("da", "dbc", "dw2", "dw3", "db2", "db3"), [got[0], got[1], *got[2], *got[3]],
+                          [want[0], want[1], *want[2], *want[3]]):
+        err, bscale = (x - y).abs().max().item(), max(1e-3, y.abs().max().item())
+        bwd_err = max(bwd_err, err)
+        if not err <= 1e-4 * bscale:
+            raise AssertionError(f"fused_sa_bwd {tag} {name}: max |diff| {err} > 1e-4 of the scale {bscale}")
+    return fwd_err, bwd_err
+
+
+def modelnet_clouds(n_clouds, seed):
+    """CAD clouds of MN_POINTS points (xyz) on the unit sphere's scale."""
+    from deepclr_tpu_torch.data.synthetic import cad_cloud
+
+    rng = np.random.default_rng(seed)
+    return np.stack([cad_cloud(rng, MN_POINTS)[:, :3] for _ in range(n_clouds)])
+
+
+def check_modelnet_kernels(dev):
+    """Phase 3, the ModelNet40 shape: B1, B3, B2 and B4 against their twins
+    on 10 CAD clouds x 2048 points (unsorted, below SORT_MIN_POINTS) -> 512
+    centres, radii 0.1 / 0.2, no point features, float32 and bfloat16."""
+    from deepclr_tpu_torch.models import build_model
+    from deepclr_tpu_torch.ops import fps, fused_sa
+
+    model = build_model(modelnet_model_cfg(), device=dev, seed=0)
+    pts = torch.from_numpy(modelnet_clouds(MN_CLOUDS, seed=70)).to(dev)
+    op = sa_operands(model, pts, torch.ones(pts.shape[:2], dtype=torch.bool, device=dev))
+    if op["feats"] is not None or op["npoint"] != 512 or model.cloud_features._sa0.radii != (0.1, 0.2):
+        raise AssertionError("ModelNet40 shape: expected no point features, 512 centres and radii 0.1 / 0.2")
+    got = fps.furthest_point_sample(op["xyz"], op["npoint"], op["mask"])
+    ref = fps._fps_plain(op["xyz"], op["npoint"], op["mask"])
+    if not torch.equal(got, ref):
+        raise AssertionError(f"fps ModelNet40 shape: {(got != ref).sum().item()} indices differ")
+    pts4 = fused_sa._pack_points(op["xyz"], op["mask"])
+    ref = fused_sa._block_min_d2_plain(pts4, op["centers"])
+    r2max = max(model.cloud_features._sa0.radii) ** 2
+    for got in (fused_sa.block_min_d2(pts4, op["centers"]),
+                fused_sa.block_min_d2_and_cull(pts4, op["centers"], r2max)[0]):
+        if not torch.equal(got, ref):
+            raise AssertionError(f"min_d2 ModelNet40 shape: max |diff| {(got - ref).abs().max().item()}")
+    errs = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        sa_op, active = fused_operands(op, dtype)
+        errs[str(dtype)] = dict(zip(("fused_sa", "fused_sa_bwd"), check_fwd_bwd(sa_op, active, f"ModelNet40 {dtype}")))
+        errs[str(dtype)]["in_radius_pairs_per_centre"] = pair_stats(sa_op)[0] / (MN_CLOUDS * op["npoint"])
+    emit({"check": "kernels_modelnet40_shape", "clouds": MN_CLOUDS, "points": MN_POINTS, "npoint": op["npoint"],
+          "fps_equal": True, "min_d2_equal": True, "max_abs_err": errs,
+          "tolerance": {"fused_sa": "1e-5 of max(1, max|plain|)", "fused_sa_bwd": "1e-4 of each result's scale"}})
+
+
+class TimedLoader:
+    """A loader whose batches are timed as they are waited for: ``waits``
+    (host ms inside next()), and for each full pass its ms a batch."""
+
+    def __init__(self, loader):
+        self.loader, self.waits, self.pass_ms_per_batch = loader, [], []
+
+    def __len__(self):
+        return len(self.loader)
+
+    def __iter__(self):
+        it = iter(self.loader)
+        t_pass, n = time.perf_counter(), 0
+        try:
+            while True:
+                t0 = time.perf_counter()
+                try:
+                    batch = next(it)
+                except StopIteration:
+                    if n:
+                        self.pass_ms_per_batch.append((time.perf_counter() - t_pass) * 1e3 / n)
+                    return
+                self.waits.append((time.perf_counter() - t0) * 1e3)
+                n += 1
+                yield batch
+        finally:
+            it.close()  # an early stop ends the loader's prefetch thread and workers
+
+
+class TrainerProbe:
+    """Patches the trainer's factories for one train(cfg): its loaders
+    become TimedLoaders, and each train and eval step is timed with CUDA
+    events (device work and the host work the device waited for)."""
+
+    def __init__(self):
+        self.loaders, self.step_ms, self.eval_ms = {}, [], []
+
+    def __enter__(self):
+        from deepclr_tpu_torch.engine import trainer
+
+        self._trainer = trainer
+        self._saved = {k: getattr(trainer, k) for k in ("make_data_loader", "make_train_step", "make_eval_step")}
+
+        def make_data_loader(cfg, is_train, **kw):
+            loader = self._saved["make_data_loader"](cfg, is_train, **kw)
+            if loader is None:
+                return None
+            self.loaders["train" if is_train else "val"] = timed = TimedLoader(loader)
+            return timed
+
+        def timed(make, sink):
+            def factory(*args, **kw):
+                fn = make(*args, **kw)
+
+                def call(*a, **k):
+                    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                    start.record()
+                    out = fn(*a, **k)
+                    end.record()
+                    end.synchronize()
+                    sink.append(start.elapsed_time(end))
+                    return out
+                return call
+            return factory
+
+        trainer.make_data_loader = make_data_loader
+        trainer.make_train_step = timed(self._saved["make_train_step"], self.step_ms)
+        trainer.make_eval_step = timed(self._saved["make_eval_step"], self.eval_ms)
+        return self
+
+    def __exit__(self, *exc):
+        for k, v in self._saved.items():
+            setattr(self._trainer, k, v)
+
+
+def write_yaml_packs(tmp):
+    """Phase 8's packs, as the repository's converters write them: KITTI
+    sequences of ray-cast HDL-64 scans (every 2nd point kept) along a
+    driven path, and ModelNet40 model stores of CAD clouds reduced to 2048
+    points by host FPS.  Returns the seconds each took."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from deepclr_tpu_torch.data import PackWriter
+    from deepclr_tpu_torch.data.synthetic import cad_cloud, drive
+    from deepclr_tpu_torch.data.transforms import FarthestPointSampling, SystematicErasing
+
+    kitti, modelnet = osp.join(tmp, "kitti", "odometry"), osp.join(tmp, "modelnet40", "models")
+    os.makedirs(kitti)
+    os.makedirs(modelnet)
+
+    def sequence(k, seq, frames):
+        erase = SystematicErasing(2)
+        with PackWriter(osp.join(kitti, f"{seq}.pack")) as w:
+            for i, (pose, scan) in enumerate(drive(np.random.default_rng(1000 + k), frames, SCAN_POINTS)):
+                w.put(f"{i:08d}", erase({"idx": i, "timestamp": i * 1e5, "pose": pose, "cloud": scan}))
+
+    def model_record(seed):
+        return FarthestPointSampling(MN_POINTS)({"idx": seed, "cloud": cad_cloud(np.random.default_rng(seed),
+                                                                                    MN_RAW_POINTS)})
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(8) as pool:
+        done = [pool.submit(sequence, k, seq, n) for k, (seq, n) in enumerate(KITTI_SEQUENCES.items())]
+        for f in done:
+            f.result()
+        t1 = time.perf_counter()
+        for name, seeds in (("train", range(MN_TRAIN)), ("test_seen", range(100, 100 + MN_TEST))):
+            with PackWriter(osp.join(modelnet, f"{name}.pack")) as w:
+                for i, rec in enumerate(pool.map(model_record, seeds)):
+                    w.put(f"{i:08d}", rec)
+    return {"kitti_packs_s": t1 - t0, "modelnet40_packs_s": time.perf_counter() - t1}
+
+
+def train_from_yaml(tmp, name, shipped, iterations, checkpoint=None):
+    """Write a YAML that extends the shipped recipe (never written) and
+    overrides only the iteration count and the logging periods, then
+    train(cfg) in this process under a TrainerProbe.  Returns (cfg, probe,
+    launches, seconds)."""
+    import yaml
+
+    from deepclr_tpu_torch import ops
+    from deepclr_tpu_torch.config import Mode, load_config
+    from deepclr_tpu_torch.engine import trainer
+
+    path = osp.join(tmp, f"{name}.yaml")
+    with open(path, "w") as f:
+        yaml.safe_dump({"extends": osp.join(REPO, shipped), "optimizer": {"max_iterations": iterations},
+                        "logging": {"summary_period": 2, "log_period": 2, "checkpoint_period": 4,
+                                    "validation_period": 4}}, f)
+    cfg = load_config(path, Mode.NEW if checkpoint is None else Mode.CONTINUE, ckpt_filename=checkpoint)
+    t0 = time.perf_counter()
+    ops.reset_launch_counts()
+    with TrainerProbe() as probe:
+        state = trainer.train(cfg)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    if state.step != iterations:
+        raise AssertionError(f"{name}: {state.step} micro-steps, expected {iterations}")
+    missing = [k for k in TRAIN_KERNELS if counts.get(k, 0) < 1]
+    if missing:
+        raise AssertionError(f"{name}: kernels {missing} never launched ({counts})")
+    return cfg, path, probe, counts, time.perf_counter() - t0
+
+
+def check_run_dir(cfg, name, iterations, sequential):
+    """The JAX artifact set, and the tags' values finite."""
+    run_dir = cfg.output_dir
+    for f in ("config.yaml", "model_config.yaml", "scalars.jsonl", f"ckpt_final_{iterations}.pt",
+              osp.join("models", "deepclr.py")):
+        if not osp.exists(osp.join(run_dir, f)):
+            raise AssertionError(f"{name}: {f} missing in the run directory")
+    for link in ("ckpt.pt", "weights.pt"):
+        if not osp.islink(osp.join(run_dir, link)):
+            raise AssertionError(f"{name}: {link} is not a link")
+    tags = {}
+    with open(osp.join(run_dir, "scalars.jsonl")) as f:
+        for line in f:
+            rec = json.loads(line)
+            tags.setdefault(rec["tag"], []).append(rec["value"])
+    want = ["train/loss", "params/lr", "val/loss_fn", "val/step_t_err"] + (["val/kitti_t_err"] if sequential else [])
+    bad = {t: tags.get(t) for t in want if not tags.get(t) or not np.isfinite(tags[t]).all()}
+    if bad:
+        raise AssertionError(f"{name}: tags missing or not finite: {bad}")
+    return {t: tags[t] for t in want}
+
+
+def infer_from_run_dir(run_dir, scen, rows, quiet):
+    """The run directory as a model directory: its model_config.yaml and
+    weights.pt through inference.run_scenario."""
+    from deepclr_tpu_torch import inference
+    from deepclr_tpu_torch.config import load_model_config
+    from deepclr_tpu_torch.models import load_trained_model
+
+    weights = osp.join(run_dir, "weights.pt")
+    with torch.inference_mode():
+        model = load_trained_model(load_model_config(osp.join(run_dir, "model_config.yaml"), weights), weights)
+        ev = inference.run_scenario(scen, model, logger=quiet)
+    return check_scenario_run(osp.basename(run_dir), ev, rows)
+
+
+def loader_rates(cfg, source):
+    """Training batches a second from the loader alone, over ``source``:
+    0 workers, 6 threads, 6 spawned processes (one epoch each; the first
+    batch's wait holds a process pool's start-up)."""
+    from deepclr_tpu_torch.data import DataLoader
+
+    out = {}
+    for workers, kind in ((0, "thread"), (6, "thread"), (6, "process")):
+        cfg.defrost()
+        cfg.data_loader.num_workers, cfg.data_loader.worker_type = workers, kind
+        cfg.freeze()
+        loader = TimedLoader(DataLoader(cfg, True, source=source))
+        t0 = time.perf_counter()
+        n = sum(1 for _ in loader)
+        total = time.perf_counter() - t0
+        out[f"{workers}_{kind}"] = {"batches": n, "batches_per_s": n / total, "first_batch_ms": loader.waits[0],
+                                    "batches_per_s_after_first": (n - 1) / (total - loader.waits[0] / 1e3)}
+    return out
+
+
+def density_kernels(model, batch, dev, tag):
+    """B1-B4 on one training batch of the path (2B clouds): B2 and B4
+    against their twins (check_fwd_bwd), device time, bound, and the counts
+    the fused kernels' design rests on."""
+    from deepclr_tpu_torch.ops import fps, fused_sa
+
+    both = torch.cat([torch.from_numpy(batch["template"]), torch.from_numpy(batch["source"])]).to(dev)
+    mask = torch.cat([torch.from_numpy(batch["template_mask"]), torch.from_numpy(batch["source_mask"])]).to(dev)
+    with torch.no_grad():
+        op = sa_operands(model, both, mask)
+        sa_op, active = fused_operands(op, model.cloud_features._sa0.compute_dtype)
+        out = fused_sa.fused_sa_core(sa_op, active)
+        fwd_err, bwd_err = check_fwd_bwd(sa_op, active, tag)
+    g = torch.randn_like(out)
+    pairs, points_hit = pair_stats(sa_op)
+    b, n, p = op["xyz"].shape[0], op["xyz"].shape[1], op["npoint"]
+    min_d2 = fused_sa.block_min_d2(sa_op.pts4, sa_op.centers)
+    rows = {
+        "fps": (lambda: fps.furthest_point_sample(op["xyz"], p, op["mask"]),
+                bound(nbytes(op["xyz"], op["mask"]) + b * p * 4, 9.0 * b * (p - 1) * n)),
+        "min_d2": (lambda: fused_sa.block_min_d2_and_cull(sa_op.pts4, sa_op.centers, sa_op.r2max),
+                   bound(nbytes(sa_op.pts4, sa_op.centers, min_d2, active), min_d2_ops(sa_op.pts4, p))),
+        "fused_sa": (lambda: fused_sa.fused_sa_core(sa_op, active), bound(*sa_work(sa_op, active, pairs, points_hit))),
+        "fused_sa_bwd": (lambda: fused_sa.fused_sa_bwd(sa_op, active, out, g),
+                         bwd_bound(sa_op, active, out, g, pairs, points_hit)),
+    }
+    kernels = {k: {"device_ms": device_ms(fn, 20), "bound_ms": bd[0], "bound_by": bd[1]}
+               for k, (fn, bd) in rows.items()}
+    return {"clouds": b, "points": n, "npoint": p, "kernels": kernels,
+            "max_abs_err": {"fused_sa": fwd_err, "fused_sa_bwd": bwd_err}, "in_radius_pairs": pairs,
+            "in_radius_pairs_per_centre": pairs / (b * p), "culling": culling_counts(sa_op, active, pairs)}
+
+
+def run_yaml_training_phase(dev, card):
+    """Phase 8: training from the shipped YAMLs on ray-cast KITTI and CAD
+    ModelNet40 packs, a resume, inference from the run directory, and the
+    timing of the loader, the micro-step, validation and the timing CLI."""
+    import contextlib
+    import io
+
+    from deepclr_tpu_torch import timing
+    from deepclr_tpu_torch.config import Mode, load_config
+    from deepclr_tpu_torch.data import make_data_loader
+    from deepclr_tpu_torch.evaluation import scenario_from_dict
+    from deepclr_tpu_torch.models import build_model
+
+    quiet = logging.getLogger("chip_smoke.scenario")
+    start = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        packs_s = write_yaml_packs(tmp)
+        env = {"KITTI_PATH": osp.join(tmp, "kitti"), "MODELNET40_PATH": osp.join(tmp, "modelnet40"),
+               "MODEL_PATH": osp.join(tmp, "models")}
+        saved_env = {k: os.environ.get(k) for k in env}
+        os.environ.update(env)
+        try:
+            cfg, path, probe, counts, train_s = train_from_yaml(tmp, "kitti", KITTI_YAML, 8)
+            kitti_tags = check_run_dir(cfg, "kitti", 8, sequential=True)
+            resumed, _, _, resume_counts, resume_s = train_from_yaml(tmp, "kitti_resume", KITTI_YAML, 12,
+                                                                     osp.join(cfg.output_dir, "ckpt.pt"))
+            check_run_dir(resumed, "kitti resumed", 12, sequential=True)
+            val_pack = osp.join(tmp, "kitti", "odometry", "04.pack")
+            kitti_scen = scenario_from_dict({"name": "synth_04", "dataset_type": "kitti_odometry_velodyne",
+                                             "sequential": True, "data": {"04": val_pack}})
+            kitti_infer = infer_from_run_dir(cfg.output_dir, kitti_scen, {"04": KITTI_SEQUENCES["04"] - 1}, quiet)
+
+            mcfg, _, mprobe, mcounts, mtrain_s = train_from_yaml(tmp, "modelnet40", MODELNET_YAML, 8)
+            modelnet_tags = check_run_dir(mcfg, "modelnet40", 8, sequential=False)
+            mn_scen = scenario_from_dict({"name": "synth_seen", "dataset_type": "modelnet40", "sequential": False,
+                                          "data": {"test_seen": osp.join(tmp, "modelnet40", "models",
+                                                                         "test_seen.pack")}})
+            mn_infer = infer_from_run_dir(mcfg.output_dir, mn_scen, {"test_seen": MN_TEST}, quiet)
+            checks_s = time.perf_counter() - start
+            emit({"check": "yaml_training", "kitti": {"tags": kitti_tags, "launches_8_micro_steps": counts,
+                                                      "launches_resumed_4_micro_steps": resume_counts,
+                                                      "inference_from_run_dir": kitti_infer,
+                                                      "train_s": train_s, "resume_s": resume_s},
+                  "modelnet40": {"tags": modelnet_tags, "launches_8_micro_steps": mcounts,
+                                 "inference_from_run_dir": mn_infer, "train_s": mtrain_s},
+                  "packs_s": packs_s, "seconds": checks_s})
+
+            # timing: the loader alone, the micro-step and validation of the
+            # first KITTI run, the timing CLI, the kernels at this density
+            t0 = time.perf_counter()
+            test_cfg = load_config(path, Mode.TEST)
+            rates = loader_rates(load_config(path, Mode.TEST), val_pack)
+            with contextlib.redirect_stdout(io.StringIO()) as printed:
+                times = timing.timing(test_cfg, sequential=True)
+            lines = printed.getvalue().splitlines()
+            if len(lines) != len(times["wall_ms"]) + 3 or len(times["wall_ms"]) != KITTI_SEQUENCES["04"] - 1:
+                raise AssertionError(f"timing: {len(lines)} lines for {len(times['wall_ms'])} pairs")
+            batch = next(iter(make_data_loader(test_cfg, True)))
+            kitti_model = build_model(test_cfg.model, device=dev, seed=0)
+            mn_cfg = load_config(osp.join(tmp, "modelnet40.yaml"), Mode.TEST)
+            mn_batch = next(iter(make_data_loader(mn_cfg, True)))
+            dens = {"kitti_raycast": density_kernels(kitti_model, batch, dev, "ray-cast KITTI batch"),
+                    "modelnet40": density_kernels(build_model(mn_cfg.model, device=dev, seed=0), mn_batch, dev,
+                                                  "ModelNet40 batch")}
+            steps, waits = probe.step_ms[2:], probe.loaders["train"].waits[2:]  # 2 warm-up micro-steps
+            emit({"yaml_training_timing": {
+                "loader_alone_5x16384_from_60000_point_frames": rates,
+                "kitti_micro_step": {"train_step_ms_median": statistics.median(steps), "train_step_ms_each": steps,
+                                     "loader_wait_ms_median": statistics.median(waits), "loader_wait_ms_each": waits},
+                "kitti_validation": {"eval_step_ms_median": statistics.median(probe.eval_ms),
+                                     "ms_per_batch_with_loader": probe.loaders["val"].pass_ms_per_batch,
+                                     "batches": len(probe.loaders["val"])},
+                "modelnet40_micro_step_ms_median": statistics.median(mprobe.step_ms[2:]),
+                "modelnet40_loader_wait_ms_median": statistics.median(mprobe.loaders["train"].waits[2:]),
+                "timing_cli_sequential": {"frames": len(times["wall_ms"]),
+                                          "wall_ms_median": statistics.median(times["wall_ms"][1:]),
+                                          "compute_ms_median": statistics.median(times["compute_ms"][1:]),
+                                          "summary": lines[-3:]},
+                "kernels_at_path_density": dens, "seconds": time.perf_counter() - t0}, "card": card})
+        finally:
+            for k, v in saved_env.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+    seconds = time.perf_counter() - start
+    emit({"phase": "yaml_training", "seconds": seconds})
+    return seconds
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke needs a CUDA card",
@@ -958,6 +1420,7 @@ def main():
     with torch.inference_mode():
         model = build_model(KITTI_MODEL_CFG, device="cuda", seed=0)
         errs = check_kernels(model, dev)
+        check_modelnet_kernels(dev)
         emit({"phase": "kernels_vs_plain", "max_abs_err": errs})
         serve_counts, templates, sources = run_main_path(model, dev)
     # parameters built under inference mode cannot be trained: the train
@@ -971,6 +1434,7 @@ def main():
     with torch.inference_mode():
         frames, _ = run_scenario_phase(model, dev)
         time_scenario(model, dev, frames, metrics["forward_pairs_per_s"], card)
+    run_yaml_training_phase(dev, card)
     launches = {**{k: serve_counts[k] for k in SERVING_KERNELS},
                 "fused_sa_bwd": train_counts["fused_sa_bwd"],
                 "fused_sa_argmax": argmax_counts["fused_sa_argmax"]}

@@ -5,5 +5,5 @@ recipe.  The hot ops run as hand-written CUDA kernels (``csrc/``) on the
 card; every kernel has a plain PyTorch twin that CPU tensors run.  Entry
 points (``models.build_model``, ``models.ModelInferenceHelper``,
 ``engine.run_trainer``) run on CUDA unless the caller asks for the CPU.
-This package imports neither jax nor deepclr_tpu.
+This package imports neither jax nor the deepclr_tpu package.
 """

@@ -1,19 +1,21 @@
 """Training engine: the train step and the host-side loop.
 
 The reference's observable behaviour: gradient accumulation, running-average
-metrics, periodic log / checkpoint events, a raise on a non-finite loss, and
-interrupt / exception checkpoints.  Configs are plain dicts with the
-sections of a training YAML (``configs.KITTI_TRAIN_CFG``); batches are dicts
-of arrays or tensors with the keys of ``BATCH_KEYS``.
-
-Validation (the Evaluator and its KITTI plots), TensorBoard summaries and
-data-parallel training are not part of this package yet: ``run_trainer``
-raises when given a validation loader.
+metrics, periodic log / summary / checkpoint / validation events, a raise on
+a non-finite loss, and interrupt / exception checkpoints.  ``train`` takes
+the ``Config`` of ``config.load_config``; ``run_trainer`` takes plain dicts
+with the sections of a training YAML (``Config.to_dict()``, or
+``configs.KITTI_TRAIN_CFG``) and sized iterables of batch dicts with the
+keys of ``BATCH_KEYS`` (``data.DataLoader``, or lists).  Data-parallel
+training is not part of this package.
 """
 from __future__ import annotations
 
 import logging
 import math
+import os
+import os.path as osp
+import shutil
 import signal
 import threading
 import time
@@ -21,14 +23,21 @@ from contextlib import contextmanager
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, Optional
 
+import numpy as np
 import torch
 from torch import nn
 
+from ..data import make_data_loader
+from ..evaluation import Evaluator
+from ..losses import make_loss_fn, make_metric_fns
+from ..models import build_model
 from ..models.deepclr import OutputSimple
+from ..solver import make_optimizer, make_schedule
+from ..utils.logging import create_logger, create_summary_writer
 from .checkpoint import Checkpointer, load_checkpoint
 
-__all__ = ["BATCH_KEYS", "TrainState", "create_train_state", "make_train_step", "run_trainer",
-           "install_sigint_handler"]
+__all__ = ["BATCH_KEYS", "TrainState", "create_train_state", "make_eval_step", "make_train_step", "run_trainer",
+           "install_sigint_handler", "store_models_code", "train"]
 
 BATCH_KEYS = ("template", "source", "template_mask", "source_mask", "aug_template", "aug_source", "y")
 
@@ -182,6 +191,72 @@ def make_train_step(model: nn.Module, optimizer, loss_fn: Callable, metric_fns: 
     return train_step
 
 
+def make_eval_step(model: nn.Module, metric_fns: Dict[str, Callable]) -> Callable:
+    """The validation step: batch -> (y_pred, metrics).  The model runs in
+    evaluation mode under ``torch.no_grad()`` (no dropout, no graph) and is
+    put back in training mode afterwards."""
+    device = next(model.parameters()).device
+
+    def eval_step(batch: Dict[str, Any]):
+        b = _to_device(batch, device)
+        model.eval()
+        try:
+            with torch.no_grad():
+                y_pred, _ = model(b["template"], b["source"], b.get("template_mask"), b.get("source_mask"),
+                                  b.get("aug_template"), b.get("aug_source"))
+                metrics = {name: fn(y_pred, b["y"]) for name, fn in metric_fns.items()}
+        finally:
+            model.train()
+        return y_pred, metrics
+
+    return eval_step
+
+
+def store_models_code(path: str) -> None:
+    """Copy the port's model source files next to the checkpoints."""
+    src = osp.join(osp.dirname(osp.dirname(osp.realpath(__file__))), "models")
+    os.makedirs(path, exist_ok=True)
+    for f in os.listdir(src):
+        if f.endswith(".py"):
+            shutil.copy(osp.join(src, f), osp.join(path, f))
+
+
+def train(cfg) -> "TrainState":
+    """Training from a configuration (the ``Config`` that
+    ``config.load_config`` returns): the model from ``cfg.seed`` on
+    ``cfg.device``, the optimizer, schedule, loss and metrics of its
+    sections, the training and validation loaders, then ``run_trainer``.
+    With an output directory (modes NEW and CONTINUE) it first writes the
+    experiment artifacts there: ``config.yaml``, ``model_config.yaml`` and
+    the model code under ``models/``; with its checkpoints the directory is
+    a model directory for ``python -m deepclr_tpu_torch.inference``.
+    Returns the final train state."""
+    model = build_model(cfg.model, device=cfg.device, seed=cfg.seed)
+    plain = cfg.to_dict()
+    optimizer = make_optimizer(plain, model.parameters())
+    schedule = make_schedule(plain)
+    loss_fn = make_loss_fn(plain["metrics"]["loss"], cfg.model.label_type)
+    metric_fns = make_metric_fns(plain["metrics"]["loss"], plain["metrics"]["other"], cfg.model.label_type)
+    train_loader = make_data_loader(cfg, is_train=True)
+    val_loader = make_data_loader(cfg, is_train=False)
+    if cfg.output_dir:
+        os.makedirs(cfg.output_dir, exist_ok=True)
+        cfg.write_file(osp.join(cfg.output_dir, "config.yaml"))
+        cfg.model.write_file(osp.join(cfg.output_dir, "model_config.yaml"))
+        store_models_code(osp.join(cfg.output_dir, "models"))
+    create_logger(logger.name, save_dir=cfg.output_dir)
+    return run_trainer(plain, model, train_loader, val_loader, optimizer, schedule, loss_fn, metric_fns,
+                       output_dir=cfg.output_dir, checkpoint=cfg.checkpoint)
+
+
+def _have_matplotlib() -> bool:
+    try:
+        import matplotlib  # noqa: F401
+    except ImportError:
+        return False
+    return True
+
+
 def run_trainer(cfg: Dict[str, Any], model: nn.Module, train_loader, val_loader, optimizer,
                 schedule: Callable[[int], float], loss_fn: Callable, metric_fns: Dict[str, Callable],
                 output_dir: Optional[str] = None, checkpoint: Optional[str] = None) -> TrainState:
@@ -191,20 +266,30 @@ def run_trainer(cfg: Dict[str, Any], model: nn.Module, train_loader, val_loader,
     ``cfg`` sections read: optimizer (max_iterations / max_epochs,
     accumulation_steps, weight_ema_decay), metrics (running_average_alpha),
     scheduler (on_iteration / on_validation, else per epoch), logging
-    (log_period, checkpoint_period, checkpoint_n_saved).  With
-    ``output_dir`` it writes periodic checkpoints there and a final,
-    interrupt or exception checkpoint when the loop ends; ``checkpoint``
-    resumes from a full checkpoint.  A non-finite loss at a log period
-    raises ValueError (after an exception checkpoint).
+    (log_period, summary_period, checkpoint_period, checkpoint_n_saved,
+    validation_period), data (sequential).  With ``val_loader`` it validates
+    every ``validation_period`` iterations and once after the final
+    checkpoint.  With ``output_dir`` it writes periodic checkpoints there, a
+    final, interrupt or exception checkpoint when the loop ends, and the
+    summaries (``scalars.jsonl``): ``train/<metric>``, ``params/lr`` and the
+    loss module's parameters every ``summary_period`` iterations;
+    ``val/<metric>`` (batch means), ``val/step_t_err`` / ``val/step_r_err``
+    and, with ``data.sequential``, ``val/kitti_t_err`` / ``val/kitti_r_err``
+    and the Evaluator's figures (when matplotlib imports) at every
+    validation.  ``checkpoint`` resumes from a full checkpoint.  A
+    non-finite loss at a log period raises ValueError (after an exception
+    checkpoint).
     """
-    if val_loader is not None:
-        raise NotImplementedError("validation (the Evaluator) is not ported; pass val_loader=None")
     opt_cfg, log_cfg = cfg["optimizer"], cfg.get("logging") or {}
     sched_cfg = cfg.get("scheduler") or {}
     log_period = int(log_cfg.get("log_period", 1000))
+    summary_period = int(log_cfg.get("summary_period", 5))
     checkpoint_period = int(log_cfg.get("checkpoint_period", 1000))
+    validation_period = int(log_cfg.get("validation_period", 5000))
+    sequential = bool((cfg.get("data") or {}).get("sequential", False))
     batch_size = int((cfg.get("data_loader") or {}).get("batch_size", 1))
     weight_ema_decay = float(opt_cfg.get("weight_ema_decay") or 0.0)
+    label_type = model.label_type
 
     loader_len = len(train_loader)
     max_iterations = opt_cfg.get("max_iterations")
@@ -223,6 +308,7 @@ def run_trainer(cfg: Dict[str, Any], model: nn.Module, train_loader, val_loader,
         ema_alpha=float((cfg.get("metrics") or {}).get("running_average_alpha", 0.5)),
         use_model_loss=getattr(model, "loss_module", None) is not None,
         weight_ema_decay=weight_ema_decay)
+    eval_step = make_eval_step(model, {**metric_fns, "loss_fn": loss_fn})
     state = create_train_state(model, weight_ema=weight_ema_decay > 0.0)
 
     start_epoch = iteration = 0
@@ -232,16 +318,66 @@ def run_trainer(cfg: Dict[str, Any], model: nn.Module, train_loader, val_loader,
         start_epoch, iteration = int(restored["epoch"]), int(restored["iteration"])
         logger.info(f"Restored checkpoint at epoch {start_epoch}, iteration {iteration}")
 
-    checkpointer = None
+    checkpointer = writer = None
     if output_dir:
         checkpointer = Checkpointer(output_dir, n_saved=int(log_cfg.get("checkpoint_n_saved", 10)))
+        writer = create_summary_writer(output_dir)
+
+    validation_count = 0
+    figures_skipped = False
 
     def scheduler_count() -> int:
         if sched_cfg.get("on_iteration"):
             return iteration
         if sched_cfg.get("on_validation"):
-            return 0  # no validation runs in this package
+            return validation_count
         return epoch
+
+    def run_validation() -> None:
+        nonlocal validation_count, figures_skipped
+        if val_loader is None:
+            return
+        export = Evaluator()
+        sums: Dict[str, float] = {}
+        count = 0
+        for vbatch in val_loader:
+            y_pred, metrics = eval_step(vbatch)
+            for k, v in metrics.items():
+                sums[k] = sums.get(k, 0.0) + float(v)
+            count += 1
+            y_gt = torch.as_tensor(vbatch["y"], dtype=torch.float32)
+            n = y_gt.shape[0]
+            names = list(vbatch.get("d", ["val"] * n))
+            stamps = np.asarray([np.ravel(s)[-1] for s in vbatch.get("t", np.zeros(n))], dtype=np.float64)
+            m_pred = label_type.to_matrix(y_pred.float().cpu()).numpy()
+            m_gt = label_type.to_matrix(y_gt).numpy()
+            for i in range(n):
+                export.add_transforms(str(names[i]), float(stamps[i]), m_pred[i], m_gt[i])
+        if count == 0:
+            return
+        means = {k: v / count for k, v in sums.items()}
+        logger.info(f"Validation Results - Epoch[{epoch}] Iteration[{iteration}] "
+                    f"Avg Loss: {means.get('loss_fn', float('nan')):.6f}")
+        validation_count += 1
+        if writer is None:
+            return
+        for k, v in means.items():
+            writer.add_scalar(f"val/{k}", v, iteration)
+        total_step = export.get_total_step_errors()
+        writer.add_scalar("val/step_t_err", total_step.mean.translation.kitti, iteration)
+        writer.add_scalar("val/step_r_err", total_step.mean.rotation.kitti, iteration)
+        if sequential:
+            if _have_matplotlib():
+                for name, fig in export.plot_sequences().items():
+                    writer.add_figure(f"val/{name}", fig, iteration)
+                writer.add_figure("val/kitti_errors", export.plot_total_kitti_errors(), iteration)
+                writer.add_figure("val/segment_errors", export.plot_segment_error_bars(), iteration)
+            elif not figures_skipped:
+                logger.info("matplotlib does not import: the validation figures are skipped")
+                figures_skipped = True
+            total_seg = export.get_total_segment_errors()
+            writer.add_scalar("val/kitti_t_err", total_seg.mean.translation.kitti, iteration)
+            writer.add_scalar("val/kitti_r_err", total_seg.mean.rotation.kitti, iteration)
 
     def save_ckpt(special: Optional[str] = None) -> None:
         if checkpointer is None:
@@ -277,8 +413,18 @@ def run_trainer(cfg: Dict[str, Any], model: nn.Module, train_loader, val_loader,
                         raise ValueError(f"Invalid loss: {loss_val}")
                     logger.info(f"Epoch[{epoch + 1}] Iteration[{(iteration - 1) % loader_len + 1}/"
                                 f"{loader_len}] Loss: {loss_val:.6f}")
+                if writer is not None and iteration % summary_period == 0:
+                    for k, v in metrics.items():
+                        writer.add_scalar(f"train/{k}", float(v), iteration)
+                    writer.add_scalar("params/lr", lr, iteration)
+                    if model.loss_module is not None:
+                        for k, v in model.loss_module.named_parameters():
+                            writer.add_scalar(f"params/{k.lstrip('_')}", v.detach().reshape(-1)[0].item(),
+                                              iteration)
                 if iteration % checkpoint_period == 0:
                     save_ckpt()
+                if iteration % validation_period == 0:
+                    run_validation()
                 if iteration >= max_iterations:
                     done = True
                     break
@@ -292,6 +438,7 @@ def run_trainer(cfg: Dict[str, Any], model: nn.Module, train_loader, val_loader,
         _shutdown.set()  # loop done: a late SIGINT must not kill the flush
         logger.info("Training completed")
         save_ckpt("final")
+        run_validation()
     except KeyboardInterrupt:
         _shutdown.set()
         logger.info("KeyboardInterrupt. Stopping training.")
@@ -302,6 +449,9 @@ def run_trainer(cfg: Dict[str, Any], model: nn.Module, train_loader, val_loader,
         save_ckpt("exception")
         raise
     finally:
+        if writer is not None:
+            writer.flush()
+            writer.close()
         # restore only a foreign previous handler: restoring the default one
         # would reopen the late-SIGINT window for a caller that installed ours
         if prev_sigint is not None and prev_sigint is not _sigint_handler:

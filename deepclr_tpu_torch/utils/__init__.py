@@ -1,5 +1,5 @@
-"""Host-side helpers: path expansion and logging."""
-from .logging import create_logger
+"""Host-side helpers: path expansion, logging and the summary writer."""
+from .logging import SummaryWriter, create_logger, create_summary_writer
 from .path import expand_path
 
-__all__ = ["create_logger", "expand_path"]
+__all__ = ["SummaryWriter", "create_logger", "create_summary_writer", "expand_path"]

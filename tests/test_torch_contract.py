@@ -32,6 +32,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             "deepclr_tpu_torch.data.datasets", "deepclr_tpu_torch.evaluation.evaluator",
             "deepclr_tpu_torch.evaluation.plot", "deepclr_tpu_torch.geometry.hostmath",
             "deepclr_tpu_torch.utils.logging", "deepclr_tpu_torch.utils.path"} <= set(modules)
+    assert {"deepclr_tpu_torch.data.transforms", "deepclr_tpu_torch.data.batching", "deepclr_tpu_torch.data.loader",
+            "deepclr_tpu_torch.data.synthetic", "deepclr_tpu_torch.training",
+            "deepclr_tpu_torch.timing"} <= set(modules)
     code = (
         "import importlib, json, sys\n"
         f"for m in {modules!r}: importlib.import_module(m)\n"
@@ -63,9 +66,17 @@ def _small_cfg():
     return cfg
 
 
-def test_entry_points_default_to_cuda():
+def test_entry_points_default_to_cuda(tmp_path):
     """build_model runs on CUDA unless given device='cpu'; without a card it
-    raises instead of falling back to the CPU."""
+    raises instead of falling back to the CPU.  So do training and timing
+    from a YAML whose device is tpu or cuda: they raise before any run
+    directory is written."""
+    import faulthandler
+    import signal
+
+    from deepclr_tpu_torch import timing, training
+    from deepclr_tpu_torch.config import Mode, load_config
+
     if torch.cuda.is_available():
         assert next(build_model(_small_cfg()).parameters()).is_cuda
         return
@@ -74,6 +85,26 @@ def test_entry_points_default_to_cuda():
     with pytest.raises(RuntimeError, match="CUDA"):
         resolve_device("cuda")
     assert resolve_device("cpu") == torch.device("cpu")
+
+    for device in ("tpu", "cuda"):
+        path = tmp_path / f"{device}.yaml"
+        with open(path, "w") as f:
+            yaml.dump({"base_dir": str(tmp_path / "models"), "device": device, "model": _small_cfg(),
+                       "data": {"training": str(tmp_path / "none.pack"), "validation": str(tmp_path / "none.pack"),
+                                "dataset_type": "kitti_odometry_velodyne"},
+                       "optimizer": {"max_iterations": 2}}, f)
+        with pytest.raises(RuntimeError, match="CUDA"):
+            training.train(load_config(str(path), Mode.NEW))
+        sigint = signal.getsignal(signal.SIGINT)
+        try:
+            with pytest.raises(RuntimeError, match="CUDA"):
+                training.main([str(path)])
+        finally:  # main installs the run's SIGINT handler and the SIGUSR1 stack dump
+            signal.signal(signal.SIGINT, sigint)
+            faulthandler.unregister(signal.SIGUSR1)
+        with pytest.raises(RuntimeError, match="CUDA"):
+            timing.main([str(path)])
+    assert not (tmp_path / "models").exists()
 
 
 def test_cpu_path_runs_plain_versions_and_counts_no_launch():

@@ -356,3 +356,130 @@ def test_batched_sequential_on_card_matches_cpu(dev, presorted):
             assert got == ref == [None, None]
         else:
             np.testing.assert_allclose(np.stack(got), np.stack(ref), atol=2e-2, rtol=0)
+
+
+# The JAX contract (deepclr_tpu/models/base.py, tests/model/test_modules.py):
+# B lock-step lanes equal B single helpers within 1e-5 at float32.  The
+# flagship widths at compute_dtype float32, on 16384-point clouds (no host
+# subsample, so every run pads nothing and draws nothing).  Every kernel and
+# the encode work per cloud; the head's GEMMs (M = B x 1024 rows) pick their
+# cuBLAS kernel by the row count, so their float32 sums run in another
+# order, well inside 1e-5.  At bfloat16 each such layer then rounds to bf16,
+# which turns that float32 difference into whole bf16 steps (4e-3 to 5e-3 on
+# the labels in chip_smoke.py phase 7): only float32 holds 1e-5.
+F32_BATCH_TOL = 1e-5
+
+
+def test_float32_predictions_do_not_depend_on_the_batch(dev):
+    from deepclr_tpu_torch.models import BatchedSequentialHelper
+    from deepclr_tpu_torch.synthetic import kitti_like_sequence
+
+    cfg = copy.deepcopy(KITTI_MODEL_CFG)
+    cfg["params"]["compute_dtype"] = "float32"
+    model = build_model(cfg, device="cuda", seed=0)
+    frames = [kitti_like_sequence(4, 16384, seed=s)[0] for s in (20, 21)]
+    batched = BatchedSequentialHelper(model, batch=2, num_points=16384, seed=0)
+    singles = [ModelInferenceHelper(model, is_sequential=True, num_points=16384, seed=i) for i in range(2)]
+    lanes = 0.0
+    for t in range(4):
+        got = batched.step([frames[0][t], frames[1][t]])
+        for i, single in enumerate(singles):
+            ref = single.predict(frames[i][t])
+            assert (got[i] is None) == (ref is None) == (t == 0)
+            if ref is not None:
+                lanes = max(lanes, float(np.abs(got[i] - ref).max()))
+    helper = ModelInferenceHelper(model, num_points=16384)
+    sources, templates = frames[0], frames[1]
+    four = helper.predict_batch(sources, templates)
+    one = np.concatenate([helper.predict_batch(sources[i:i + 1], templates[i:i + 1]) for i in range(4)])
+    pairs = float(np.abs(four - one).max())
+    assert lanes <= F32_BATCH_TOL and pairs <= F32_BATCH_TOL, (lanes, pairs)
+
+
+def _modelnet40_model_cfg():
+    import os.path as osp
+
+    import yaml
+
+    with open(osp.join(osp.dirname(__file__), "..", "configs", "training", "modelnet40.yaml")) as f:
+        return yaml.safe_load(f)["model"]
+
+
+# The ModelNet40 recipe's shape: 10 CAD clouds x 2048 points (below
+# SORT_MIN_POINTS, so unsorted) -> 512 centres, radii 0.1 / 0.2, no point
+# features; the tolerances of the kernel cases above.
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernels_at_the_modelnet40_shape(dev, dtype):
+    from deepclr_tpu_torch.data.synthetic import cad_cloud
+
+    cfg = _modelnet40_model_cfg()
+    cfg["params"]["compute_dtype"] = "float32" if dtype == torch.float32 else "bfloat16"
+    sa = build_model(cfg, device="cuda", seed=0).cloud_features._sa0
+    assert sa.npoint == 512 and tuple(sa.radii) == (0.1, 0.2)
+    rng = np.random.default_rng(70)
+    xyz = torch.from_numpy(np.stack([cad_cloud(rng, 2048)[:, :3] for _ in range(10)])).to(dev)
+    mask = torch.ones(10, 2048, dtype=torch.bool, device=dev)
+    idx = fps.furthest_point_sample(xyz, 512, mask)
+    assert torch.equal(idx, fps._fps_plain(xyz, 512, mask))
+    weights, biases, radius = ops.multi_scale_bundle(
+        [[m.dense(i).weight.detach().t() for i in range(m.depth)] for m in sa.mlps],
+        [[m.dense(i).bias.detach() for i in range(m.depth)] for m in sa.mlps], sa.radii)
+    op = fused_sa.prepare(xyz, ops.gather_points(xyz, idx).contiguous(), weights, biases, radius, None, mask, dtype)
+    d2, active = fused_sa.block_min_d2_and_cull(op.pts4, op.centers, op.r2max)
+    ref_d2, ref_active = fused_sa.block_min_d2_and_cull(op.pts4.cpu(), op.centers.cpu(), op.r2max)
+    assert torch.equal(d2.cpu(), ref_d2) and torch.equal(active.cpu(), ref_active)
+    out, ref = fused_sa.fused_sa_core(op, active), fused_sa._fused_sa_plain(op)
+    assert (ref != 0).float().mean() > 0.3
+    _assert_close_to_scale(out, ref, 1e-5, "out")
+    g = torch.randn(out.shape, generator=torch.Generator().manual_seed(71)).to(dev)
+    got, want = fused_sa.fused_sa_bwd(op, active, out, g), fused_sa._fused_sa_bwd_plain(op, ref, g)
+    for what, x, y in zip(["da", "dbc", "dw2", "dw3", "db2", "db3"], [got[0], got[1], *got[2], *got[3]],
+                          [want[0], want[1], *want[2], *want[3]]):
+        _assert_close_to_scale(x, y, 1e-4, what)
+
+
+def test_train_from_a_yaml_on_ray_cast_packs(dev, tmp_path, monkeypatch):
+    """train(cfg) of the shipped kitti_synth recipe (extended, never
+    written) for 2 micro-steps with a validation, on short sequences of
+    ray-cast HDL-64 scans (every 2nd point kept, as the KITTI converter
+    does); every training kernel launches and the tags are finite."""
+    import json
+    import os.path as osp
+
+    import yaml
+
+    from deepclr_tpu_torch.config import Mode, load_config
+    from deepclr_tpu_torch.data import PackWriter
+    from deepclr_tpu_torch.data.synthetic import drive
+    from deepclr_tpu_torch.engine import train
+
+    odometry = tmp_path / "kitti" / "odometry"
+    odometry.mkdir(parents=True)
+    # 00 and 01 give 6 training pairs (one batch of 5), 04 two validation pairs
+    for k, (seq, frames) in enumerate((("00", 4), ("01", 4), ("04", 3))):
+        with PackWriter(str(odometry / f"{seq}.pack")) as w:
+            for i, (pose, scan) in enumerate(drive(np.random.default_rng(k), frames, 120_000)):
+                w.put(f"{i:08d}", {"idx": i, "timestamp": i * 1e5, "pose": pose, "cloud": scan[::2]})
+    monkeypatch.setenv("KITTI_PATH", str(tmp_path / "kitti"))
+    monkeypatch.setenv("MODEL_PATH", str(tmp_path / "models"))
+    path = tmp_path / "train.yaml"
+    shipped = osp.join(osp.dirname(__file__), "..", "configs", "training", "kitti_synth.yaml")
+    with open(path, "w") as f:
+        yaml.safe_dump({"extends": osp.realpath(shipped), "optimizer": {"max_iterations": 2},
+                        "logging": {"summary_period": 1, "log_period": 1, "checkpoint_period": 2,
+                                    "validation_period": 2}}, f)
+    cfg = load_config(str(path), Mode.NEW)
+    assert cfg.device == "cuda" and cfg.data_loader.num_points == 16384
+    ops.reset_launch_counts()
+    state = train(cfg)
+    counts = ops.launch_counts()
+    assert state.step == 2
+    assert all(counts[k] > 0 for k in ("fps", "min_d2", "fused_sa", "fused_sa_bwd")), counts
+    tags = {}
+    with open(osp.join(cfg.output_dir, "scalars.jsonl")) as f:
+        for line in f:
+            rec = json.loads(line)
+            tags.setdefault(rec["tag"], []).append(rec["value"])
+    for tag in ("train/loss", "params/lr", "val/loss_fn", "val/step_t_err"):
+        assert tags.get(tag) and np.isfinite(tags[tag]).all(), (tag, tags.get(tag))
+    assert osp.islink(osp.join(cfg.output_dir, "weights.pt"))
