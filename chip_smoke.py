@@ -97,13 +97,41 @@ Phases, in order; any failure raises and exits non-zero:
    micro-step (CUDA events around train_step) beside the loader wait,
    validation ms a batch, timing.timing(cfg, sequential=True) on the
    validation pack, and B1-B4 device time against their bounds with the
-   culling counts on a training batch of each recipe.
+   culling counts on a training batch of each recipe;
+9. the ICP baselines and scoring without JAX (in a temporary directory): a
+   KITTI sequence pack of ray-cast HDL-64 scans (120000 points, every 2nd
+   kept, so ~60000 a frame), cut only in frame count (ICP_FRAMES), goes
+   through icp.cli.run, the function behind python -m
+   deepclr_tpu_torch.icp, with icp_po2po, icp_po2pl and gicp at
+   --max-distance 1.0 (scripts/run_icp.sh) on the card.  Checks: every
+   transform finite and SE(3) (rotation orthonormal to 1e-4), iterations
+   <= max_iterations, and each algorithm on a seeded 4096-point cut of
+   every pair on the card within ICP_TOL of the same on the CPU (1e-4, the
+   CPU parity bound of tests/test_torch_icp.py; 1e-3 for po2po, whose
+   centroid moves 2.4e-4 with one flipped correspondence), iterations within one, on
+   every pair where both runs converged before the iteration cap (at least
+   one must; a capped run's last iterate is printed, not gated).  The
+   error against the known motion is printed, not gated.  Then the
+   evaluation CLI (evaluation.cli.main, with pandas and matplotlib
+   absent) scores the three runs alone and as one scenario, and the
+   DeepCLR runs of phases 7 and 8 written as run directories; every step
+   table is finite, and so is the segment table of phase 8's 106 m
+   sequence (the others are shorter than KITTI's shortest segment, so
+   their segment fields are empty); the devkit CLI on every run's pose
+   files counts exactly the sequences that reach 100 m.  Printed: ms a
+   pair (host clock, the pair's clouds on the host to its transform on
+   the host) with the share spent in the per-iteration host reads and in
+   the iteration loop, the device's busy share of the loop (CUDA events
+   around each iteration), iterations, peak torch.cuda.max_memory_allocated,
+   the errors against the known motion, the nearest-neighbour block size.
 
 Prints JSON lines; the one before the last two lists the kernels, then the
 card's name and power limit, and the last is {"ok": true, "device": {...}}.
 Imports nothing of jax or of the deepclr_tpu package.
 """
+import contextlib
 import copy
+import importlib.util
 import json
 import logging
 import os
@@ -150,6 +178,16 @@ SCENE_PAIRS, PAIR_POINTS = 8, 12_000  # the pair pack: clouds that fit NPTS, so 
 SCENE_LANES = (1, 2, 8)
 SCENE_TOL = 2e-2
 F32_BATCH_TOL = 1e-5          # batch invariance at float32: B lanes equal B single helpers (the JAX contract)
+ICP_FRAMES = 6                # frames of the ICP drive (5 registrations): a drive cut in length only
+ICP_ALGORITHMS = ("icp_po2po", "icp_po2pl", "gicp")
+ICP_MAX_DISTANCE = 1.0        # scripts/run_icp.sh
+ICP_MAX_ITERATIONS = 100      # the CLI's default
+ICP_CUT_POINTS = 4096         # card against CPU on this cut of every pair
+# card against CPU: the CPU parity bound of tests/test_torch_icp.py, 1e-4,
+# except for po2po, whose update is a centroid: one correspondence that the
+# two devices' last-bit differences move to a neighbour d away shifts it by
+# d / 4096 (2.4e-4 at the 1 m gate), so it is held to four such flips
+ICP_TOL = {"icp_po2po": 1e-3, "icp_po2pl": 1e-4, "gicp": 1e-4}
 
 
 def emit(obj):
@@ -860,7 +898,9 @@ def check_float32_batch_invariance(dev, frames, pair_scen, quiet):
 
 
 def run_scenario_phase(model, dev):
-    """Phase 7, checks: the scenario path through inference.run_scenario."""
+    """Phase 7, checks: the scenario path through inference.run_scenario.
+    Returns the raw frames, the launch counts and (the sequential scenario,
+    its 1-lane float32 Evaluator), which phase 9 scores."""
     from deepclr_tpu_torch import inference, ops
     from deepclr_tpu_torch.evaluation import scenario_from_dict
 
@@ -905,7 +945,7 @@ def run_scenario_phase(model, dev):
     bad.update({f"float32_{k}": v for k, v in f32_errs.items() if not v <= F32_BATCH_TOL})
     if bad:
         raise AssertionError(f"scenario inference: {bad} above {SCENE_TOL} (bf16) / {F32_BATCH_TOL} (float32)")
-    return frames, counts
+    return frames, counts, (seq_scen, seq_runs[(1, "float32")])
 
 
 def host_split(model, dev, streams, upload_dtype, reps=6):
@@ -1235,7 +1275,8 @@ def check_run_dir(cfg, name, iterations, sequential):
 
 def infer_from_run_dir(run_dir, scen, rows, quiet):
     """The run directory as a model directory: its model_config.yaml and
-    weights.pt through inference.run_scenario."""
+    weights.pt through inference.run_scenario.  Returns the checks and the
+    Evaluator."""
     from deepclr_tpu_torch import inference
     from deepclr_tpu_torch.config import load_model_config
     from deepclr_tpu_torch.models import load_trained_model
@@ -1244,7 +1285,7 @@ def infer_from_run_dir(run_dir, scen, rows, quiet):
     with torch.inference_mode():
         model = load_trained_model(load_model_config(osp.join(run_dir, "model_config.yaml"), weights), weights)
         ev = inference.run_scenario(scen, model, logger=quiet)
-    return check_scenario_run(osp.basename(run_dir), ev, rows)
+    return check_scenario_run(osp.basename(run_dir), ev, rows), ev
 
 
 def loader_rates(cfg, source):
@@ -1303,8 +1344,9 @@ def density_kernels(model, batch, dev, tag):
 def run_yaml_training_phase(dev, card):
     """Phase 8: training from the shipped YAMLs on ray-cast KITTI and CAD
     ModelNet40 packs, a resume, inference from the run directory, and the
-    timing of the loader, the micro-step, validation and the timing CLI."""
-    import contextlib
+    timing of the loader, the micro-step, validation and the timing CLI.
+    Returns (the 04 scenario, the Evaluator of the inference from the KITTI
+    run directory), which phase 9 scores."""
     import io
 
     from deepclr_tpu_torch import timing
@@ -1330,14 +1372,15 @@ def run_yaml_training_phase(dev, card):
             val_pack = osp.join(tmp, "kitti", "odometry", "04.pack")
             kitti_scen = scenario_from_dict({"name": "synth_04", "dataset_type": "kitti_odometry_velodyne",
                                              "sequential": True, "data": {"04": val_pack}})
-            kitti_infer = infer_from_run_dir(cfg.output_dir, kitti_scen, {"04": KITTI_SEQUENCES["04"] - 1}, quiet)
+            kitti_infer, kitti_ev = infer_from_run_dir(cfg.output_dir, kitti_scen, {"04": KITTI_SEQUENCES["04"] - 1},
+                                                       quiet)
 
             mcfg, _, mprobe, mcounts, mtrain_s = train_from_yaml(tmp, "modelnet40", MODELNET_YAML, 8)
             modelnet_tags = check_run_dir(mcfg, "modelnet40", 8, sequential=False)
             mn_scen = scenario_from_dict({"name": "synth_seen", "dataset_type": "modelnet40", "sequential": False,
                                           "data": {"test_seen": osp.join(tmp, "modelnet40", "models",
                                                                          "test_seen.pack")}})
-            mn_infer = infer_from_run_dir(mcfg.output_dir, mn_scen, {"test_seen": MN_TEST}, quiet)
+            mn_infer, _ = infer_from_run_dir(mcfg.output_dir, mn_scen, {"test_seen": MN_TEST}, quiet)
             checks_s = time.perf_counter() - start
             emit({"check": "yaml_training", "kitti": {"tags": kitti_tags, "launches_8_micro_steps": counts,
                                                       "launches_resumed_4_micro_steps": resume_counts,
@@ -1387,7 +1430,210 @@ def run_yaml_training_phase(dev, card):
                     os.environ[k] = v
     seconds = time.perf_counter() - start
     emit({"phase": "yaml_training", "seconds": seconds})
+    return kitti_scen, kitti_ev
+
+
+def write_run_dir(base, scen, method, params, ev):
+    """A run directory as the inference and ICP CLIs write it:
+    {stamp}_{scenario}_{METHOD}/ with scenario.yaml (its method entry) and
+    one 26-column file a sequence."""
+    import yaml
+
+    run_dir = osp.join(base, f"{time.strftime('%Y%m%d_%H%M%S')}_{scen.name}_{method}")
+    os.makedirs(run_dir)
+    with open(osp.join(run_dir, "scenario.yaml"), "w") as f:
+        yaml.dump({**scen.to_dict(), "method": {"name": method, "params": params}}, f, default_flow_style=False,
+                  sort_keys=False)
+    ev.write(run_dir)
+    return run_dir
+
+
+def write_icp_pack(path, frames, seed):
+    """A KITTI sequence pack as the converter writes it: ray-cast HDL-64
+    scans of SCAN_POINTS along a driven path, every 2nd point kept."""
+    from deepclr_tpu_torch.data import PackWriter
+    from deepclr_tpu_torch.data.synthetic import drive
+    from deepclr_tpu_torch.data.transforms import SystematicErasing
+
+    erase = SystematicErasing(2)
+    with PackWriter(path) as w:
+        for i, (pose, scan) in enumerate(drive(np.random.default_rng(seed), frames, SCAN_POINTS)):
+            w.put(f"{i:08d}", erase({"idx": i, "timestamp": i * 1e5, "pose": pose, "cloud": scan}))
+
+
+def motion_errors(pred, gt):
+    """Translation [m] and rotation [deg] of inv(gt) @ pred."""
+    err = np.linalg.inv(gt) @ pred
+    cos = np.clip((np.trace(err[:3, :3]) - 1.0) / 2.0, -1.0, 1.0)
+    return float(np.linalg.norm(err[:3, 3])), float(np.degrees(np.arccos(cos)))
+
+
+def icp_cut_check(pairs, algorithm):
+    """The algorithm on a seeded ICP_CUT_POINTS-point cut of every pair, on
+    the card and on the CPU.  Returns, a pair, the largest transform
+    difference, both iteration counts, and whether both runs converged
+    (stopped below epsilon before the iteration cap).  A run that hits the
+    cap has not settled on a transform: its 100th iterate carries the
+    rounding differences of every step, so only converged pairs are held to
+    the tolerance."""
+    from deepclr_tpu_torch.icp import ICPRegistration
+
+    out = {}
+    for device in ("cuda", "cpu"):
+        reg = ICPRegistration(algorithm, max_distance=ICP_MAX_DISTANCE, device=device)
+        out[device] = [reg.register(reg.prepare(t), reg.prepare(s), return_info=True) for t, s in pairs]
+    return [{"max_abs_err": float(np.abs(a[0] - b[0]).max()), "iterations_card": a[1]["iterations"],
+             "iterations_cpu": b[1]["iterations"],
+             "converged": max(a[1]["iterations"], b[1]["iterations"]) < ICP_MAX_ITERATIONS}
+            for a, b in zip(out["cuda"], out["cpu"])]
+
+
+def run_icp_phase(dev, card, deepclr_runs):
+    """Phase 9: the ICP baselines through the ICP CLI's function on a
+    ray-cast KITTI sequence at full density, scored with the DeepCLR runs of
+    phases 7 and 8 (``deepclr_runs``: tag -> (scenario, Evaluator)) by the
+    evaluation CLI and the devkit, with pandas and matplotlib absent."""
+    from deepclr_tpu_torch.data import create_input_dataflow
+    from deepclr_tpu_torch.evaluation import Evaluator, scenario_from_dict
+    from deepclr_tpu_torch.evaluation import cli as evaluation_cli
+    from deepclr_tpu_torch.icp import cli as icp_cli
+    from deepclr_tpu_torch.icp import knn_block_size
+    from deepclr_tpu_torch.kitti_devkit.__main__ import main as devkit_main
+
+    quiet = logging.getLogger("chip_smoke.scenario")
+    start = time.perf_counter()
+    hidden = {m: sys.modules.get(m) for m in ("pandas", "matplotlib")}
+    installed = {m: importlib.util.find_spec(m) is not None for m in hidden}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        pack = osp.join(tmp, "00.pack")
+        write_icp_pack(pack, ICP_FRAMES, seed=1100)
+        pack_s = time.perf_counter() - t0
+        scen = scenario_from_dict({"name": "kitti_icp_synth", "dataset_type": "kitti_odometry_velodyne",
+                                   "sequential": True, "data": {"00": pack}})
+        pairs = [(ds["clouds"][0][:, :3], ds["clouds"][1][:, :3], ds["transform"])
+                 for ds in create_input_dataflow(scen.dataset_type, pack, shuffle=False)]
+        n_points = [c.shape[0] for c, _, _ in pairs] + [pairs[-1][1].shape[0]]
+        runs_dir = osp.join(tmp, "runs")
+        os.makedirs(runs_dir)
+        results, run_dirs, bad = {}, {}, []
+        for algorithm in ICP_ALGORITHMS:
+            infos = []
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            before = torch.cuda.memory_allocated()
+            t0 = time.perf_counter()
+            run_dirs[algorithm] = icp_cli.run(scen, algorithm, runs_dir, max_distance=ICP_MAX_DISTANCE,
+                                              device=dev, logger=quiet, infos=infos)
+            wall_s = time.perf_counter() - t0
+            ev = Evaluator.read(run_dirs[algorithm], ["00.txt"])
+            seq = ev.get_sequence("00")
+            times = list(seq.times)
+            errs = [motion_errors(p, g) for p, g in zip(seq.prediction.transforms, seq.ground_truth.transforms)]
+            se3_err = max(max(float(np.abs(m[:3, :3] @ m[:3, :3].T - np.eye(3)).max()),
+                              float(np.abs(m[3] - [0, 0, 0, 1]).max())) for m in seq.prediction.transforms)
+            iterations = [i["iterations"] for i in infos]
+            rng = np.random.default_rng(91)
+            cut = []
+            for t, s, _ in pairs:
+                cut.append((t[rng.choice(t.shape[0], ICP_CUT_POINTS, replace=False)],
+                            s[rng.choice(s.shape[0], ICP_CUT_POINTS, replace=False)]))
+            cut_pairs = icp_cut_check(cut, algorithm)
+            held = [c for c in cut_pairs if c["converged"]]
+            results[algorithm] = {
+                "pairs": len(times), "ms_a_pair_median": statistics.median(times), "ms_a_pair_each": times,
+                "host_read_share": sum(i["host_read_ms"] for i in infos) / sum(times),
+                "loop_share": sum(i["loop_ms"] for i in infos) / sum(times),
+                "device_busy_share_of_loop": sum(i["device_ms"] for i in infos) / sum(i["loop_ms"] for i in infos),
+                "iterations_each": iterations, "final_delta_each": [i["final_delta"] for i in infos],
+                "peak_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+                "memory_allocated_before_bytes": before,
+                "translation_err_m_each": [e[0] for e in errs], "rotation_err_deg_each": [e[1] for e in errs],
+                "se3_max_abs_err": se3_err, "card_vs_cpu_cut": cut_pairs, "wall_s": wall_s}
+            if len(times) != ICP_FRAMES - 1 or not all(np.isfinite(m).all() for m in seq.prediction.transforms):
+                bad.append(f"{algorithm}: {len(times)} rows or non-finite transforms")
+            if not se3_err <= 1e-4:
+                bad.append(f"{algorithm}: not SE(3): {se3_err}")
+            if max(iterations) > ICP_MAX_ITERATIONS:
+                bad.append(f"{algorithm}: iterations {iterations}")
+            off = [c for c in held if not c["max_abs_err"] <= ICP_TOL[algorithm]
+                   or abs(c["iterations_card"] - c["iterations_cpu"]) > 1]
+            if off or not held:
+                bad.append(f"{algorithm}: card vs CPU at {ICP_CUT_POINTS} points over {ICP_TOL[algorithm]} or "
+                           f"iterations apart on converged pairs (or none converged): {cut_pairs}")
+
+        emit({"check": "icp", "frames": ICP_FRAMES, "frames_cut_from": "a drive's length, points never",
+              "points_a_frame": n_points, "max_distance": ICP_MAX_DISTANCE,
+              "knn_block": knn_block_size(max(n_points)), "tolerance": ICP_TOL, "cut_points": ICP_CUT_POINTS,
+              "algorithms": results, "pack_s": pack_s, "card": card})
+        if bad:
+            raise AssertionError(f"ICP: {'; '.join(bad)}")
+
+        # score: the evaluation CLI on every run, alone and as one scenario, and the devkit
+        for tag, (deepclr_scen, deepclr_ev) in deepclr_runs.items():
+            run_dirs[tag] = write_run_dir(osp.join(runs_dir, tag), deepclr_scen, "DEEPCLR", {"phase": tag},
+                                          deepclr_ev)
+        t0 = time.perf_counter()
+        sys.modules.update({m: None for m in hidden})  # as on a machine without them
+        try:
+            for run_dir in run_dirs.values():
+                evaluation_cli.main([run_dir])
+            evaluation_cli.main([runs_dir, "--scenario", scen.name])
+            devkit = {tag: score_with_devkit(run_dir, devkit_main) for tag, run_dir in run_dirs.items()}
+        finally:
+            for m, mod in hidden.items():
+                if mod is None:
+                    sys.modules.pop(m, None)
+                else:
+                    sys.modules[m] = mod
+        scoring_s = time.perf_counter() - t0
+        tables = {}
+        for tag, run_dir in run_dirs.items():
+            for name in ("step_errors.csv", "segment_errors.csv"):
+                tables[f"{tag}/{name}"] = read_csv(osp.join(run_dir, "evaluation", name))
+        multi = osp.join(runs_dir, "evaluation", scen.name, f"{scen.name}_step_errors.csv")
+        tables["multi_run/step_errors.csv"] = read_csv(multi)
+        # a segment table is finite where its drives reach the shortest KITTI segment (100 m): phase 8's 04
+        bad = {k: v for k, v in tables.items() if ("step_errors" in k or "phase8" in k) and not v["finite"]}
+        if bad or len(tables["multi_run/step_errors.csv"]["rows"]) != len(ICP_ALGORITHMS):
+            raise AssertionError(f"evaluation CLI: error tables not finite or incomplete: {tables}")
+    emit({"check": "icp_scoring", "tables": tables, "devkit_sequences": devkit, "scoring_s": scoring_s,
+          "installed": installed})
+    seconds = time.perf_counter() - start
+    emit({"phase": "icp", "seconds": seconds})
     return seconds
+
+
+def score_with_devkit(run_dir, devkit_main):
+    """The run's ground-truth and predicted poses as KITTI pose files, then
+    the devkit CLI on them; returns its sequence count."""
+    from deepclr_tpu_torch.evaluation import Evaluator
+
+    gt_dir, pred_dir = osp.join(run_dir, "kitti_gt"), osp.join(run_dir, "kitti_pred")
+    os.makedirs(gt_dir)
+    os.makedirs(pred_dir)
+    names = sorted(f[:-4] for f in os.listdir(run_dir) if f.endswith(".txt"))
+    long_enough = 0  # the devkit evaluates a sequence that holds a 100 m segment
+    for name, seq in Evaluator.read(run_dir, [f"{n}.txt" for n in names]).get_sequences().items():
+        seq.ground_truth.write(osp.join(gt_dir, f"{name}.txt"), use_poses=True)
+        seq.prediction.write(osp.join(pred_dir, f"{name}.txt"), use_poses=True)
+        long_enough += seq.ground_truth.distances[-1] > 100.0
+    with open(os.devnull, "w") as null, contextlib.redirect_stdout(null):
+        n = devkit_main([gt_dir, pred_dir])
+    if n != long_enough or not osp.exists(osp.join(pred_dir, "result", "stats.txt")):
+        raise AssertionError(f"devkit: {n} sequences of {names} in {run_dir}, {long_enough} reach 100 m")
+    return n
+
+
+def read_csv(path):
+    """A table the evaluation CLI wrote: its rows, and whether every number in it is finite."""
+    import csv
+
+    with open(path, newline="") as f:
+        rows = list(csv.DictReader(f))
+    values = [v for r in rows for k, v in r.items() if k not in ("name", "method", "params")]
+    return {"rows": [r["name"] for r in rows], "finite": all(v != "" and np.isfinite(float(v)) for v in values),
+            "empty_fields": sum(v == "" for v in values)}
 
 
 def main():
@@ -1432,9 +1678,11 @@ def main():
     kernels.update(train_kernels)
     emit({"metrics": {**metrics, **train_metrics}, "card": card})
     with torch.inference_mode():
-        frames, _ = run_scenario_phase(model, dev)
+        frames, _, deepclr_run = run_scenario_phase(model, dev)
         time_scenario(model, dev, frames, metrics["forward_pairs_per_s"], card)
-    run_yaml_training_phase(dev, card)
+    trained_run = run_yaml_training_phase(dev, card)
+    with torch.inference_mode():
+        run_icp_phase(dev, card, {"deepclr_phase7": deepclr_run, "deepclr_phase8_04": trained_run})
     launches = {**{k: serve_counts[k] for k in SERVING_KERNELS},
                 "fused_sa_bwd": train_counts["fused_sa_bwd"],
                 "fused_sa_argmax": argmax_counts["fused_sa_argmax"]}

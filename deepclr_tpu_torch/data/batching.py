@@ -20,9 +20,20 @@ import numpy as np
 
 from ..geometry import LabelType
 from ..geometry.hostmath import label_from_matrix_np
+from ..native.morton_sort import morton_sort_rows_native, native_morton_enabled
 from ..ops.morton import morton_argsort_np
 
 __all__ = ["pad_points", "BatchBuilder", "batch_samples"]
+
+
+def _morton_sorted(cloud: np.ndarray) -> np.ndarray:
+    """Rows in Morton order: the native radix sort for float32 clouds
+    (bit-identical to the numpy argsort; a failed build raises), numpy for
+    other dtypes, whose keys would quantise otherwise, and when
+    ``DEEPCLR_NATIVE_PAD=0``."""
+    if cloud.dtype == np.float32 and native_morton_enabled():
+        return morton_sort_rows_native(cloud)
+    return cloud[morton_argsort_np(cloud)]
 
 
 def pad_points(cloud: np.ndarray, num_points: int,
@@ -31,7 +42,7 @@ def pad_points(cloud: np.ndarray, num_points: int,
     """Pad with zeros + mask or uniformly subsample to exactly num_points.
 
     ``morton=True`` also sorts the valid points by their host Morton code
-    (``ops.morton.morton_argsort_np``; the padding stays at the end), so a
+    (``_morton_sorted``; the padding stays at the end), so a
     model built ``presorted`` can skip its first stage's device sort.
     """
     n = cloud.shape[0]
@@ -40,7 +51,7 @@ def pad_points(cloud: np.ndarray, num_points: int,
         sel = rng.choice(n, size=num_points, replace=False)
         cloud, n = cloud[sel], num_points
     if morton and n > 1:
-        cloud = cloud[morton_argsort_np(cloud)]
+        cloud = _morton_sorted(cloud)
     if n == num_points:
         return cloud.astype(np.float32, copy=False), np.ones(num_points, bool)
     out = np.zeros((num_points, cloud.shape[1]), np.float32)

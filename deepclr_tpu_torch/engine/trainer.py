@@ -51,10 +51,12 @@ logger = logging.getLogger(__name__)
 _shutdown = threading.Event()
 
 # A train step updates the parameters and optimizer state in place, one
-# tensor after another.  A KeyboardInterrupt in the middle would leave them
-# half-updated and the interrupt checkpoint inconsistent.  While
-# _defer_depth > 0 the SIGINT handler records the signal instead of raising;
-# _defer_interrupt re-raises it at the context exit, between two steps.
+# tensor after another, and the loop then counts it (iteration, the
+# periodic checkpoint).  A KeyboardInterrupt anywhere in between would leave
+# the state half-updated, or a step ahead of the iteration the interrupt
+# checkpoint records.  While _defer_depth > 0 the SIGINT handler records the
+# signal instead of raising; _defer_interrupt re-raises it when the
+# iteration's block ends, between two whole iterations.
 _defer_depth = 0
 _interrupt_pending = False
 
@@ -67,9 +69,11 @@ def _defer_interrupt():
         yield
     finally:
         _defer_depth -= 1
-        if _interrupt_pending and _defer_depth == 0:
-            _interrupt_pending = False
-            raise KeyboardInterrupt
+    # reached only when the block ends normally (or by break): an exception
+    # from the block propagates as it is
+    if _interrupt_pending and _defer_depth == 0:
+        _interrupt_pending = False
+        raise KeyboardInterrupt
 
 
 def _sigint_handler(signum, frame):
@@ -402,32 +406,35 @@ def run_trainer(cfg: Dict[str, Any], model: nn.Module, train_loader, val_loader,
             n_batches = 0
             metrics = None
             for batch in train_loader:
-                lr = schedule(scheduler_count())
+                # the step and all of its bookkeeping are one deferred unit, so a
+                # SIGINT lands between two whole iterations: the interrupt
+                # checkpoint's iteration then counts every step its state holds
                 with _defer_interrupt():
+                    lr = schedule(scheduler_count())
                     metrics = train_step(state, batch, lr)
-                iteration += 1
-                n_batches += 1
-                if iteration % log_period == 0:
-                    loss_val = float(metrics["loss"])
-                    if not math.isfinite(loss_val):
-                        raise ValueError(f"Invalid loss: {loss_val}")
-                    logger.info(f"Epoch[{epoch + 1}] Iteration[{(iteration - 1) % loader_len + 1}/"
-                                f"{loader_len}] Loss: {loss_val:.6f}")
-                if writer is not None and iteration % summary_period == 0:
-                    for k, v in metrics.items():
-                        writer.add_scalar(f"train/{k}", float(v), iteration)
-                    writer.add_scalar("params/lr", lr, iteration)
-                    if model.loss_module is not None:
-                        for k, v in model.loss_module.named_parameters():
-                            writer.add_scalar(f"params/{k.lstrip('_')}", v.detach().reshape(-1)[0].item(),
-                                              iteration)
-                if iteration % checkpoint_period == 0:
-                    save_ckpt()
-                if iteration % validation_period == 0:
-                    run_validation()
-                if iteration >= max_iterations:
-                    done = True
-                    break
+                    iteration += 1
+                    n_batches += 1
+                    if iteration % log_period == 0:
+                        loss_val = float(metrics["loss"])
+                        if not math.isfinite(loss_val):
+                            raise ValueError(f"Invalid loss: {loss_val}")
+                        logger.info(f"Epoch[{epoch + 1}] Iteration[{(iteration - 1) % loader_len + 1}/"
+                                    f"{loader_len}] Loss: {loss_val:.6f}")
+                    if writer is not None and iteration % summary_period == 0:
+                        for k, v in metrics.items():
+                            writer.add_scalar(f"train/{k}", float(v), iteration)
+                        writer.add_scalar("params/lr", lr, iteration)
+                        if model.loss_module is not None:
+                            for k, v in model.loss_module.named_parameters():
+                                writer.add_scalar(f"params/{k.lstrip('_')}", v.detach().reshape(-1)[0].item(),
+                                                  iteration)
+                    if iteration % checkpoint_period == 0:
+                        save_ckpt()
+                    if iteration % validation_period == 0:
+                        run_validation()
+                    if iteration >= max_iterations:
+                        done = True
+                        break
             if n_batches and metrics is not None:
                 tpb = (time.monotonic() - t_epoch) / n_batches
                 logger.info(f"Epoch {epoch + 1} done. Avg Loss: {float(metrics['loss']):.6f} "

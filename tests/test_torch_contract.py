@@ -35,6 +35,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert {"deepclr_tpu_torch.data.transforms", "deepclr_tpu_torch.data.batching", "deepclr_tpu_torch.data.loader",
             "deepclr_tpu_torch.data.synthetic", "deepclr_tpu_torch.training",
             "deepclr_tpu_torch.timing"} <= set(modules)
+    assert {"deepclr_tpu_torch.icp.icp", "deepclr_tpu_torch.icp.cli", "deepclr_tpu_torch.icp.__main__",
+            "deepclr_tpu_torch.native", "deepclr_tpu_torch.native.pack_reader", "deepclr_tpu_torch.native.morton_sort",
+            "deepclr_tpu_torch.kitti_devkit.__main__", "deepclr_tpu_torch.kitti_devkit.plots",
+            "deepclr_tpu_torch.evaluation.cli", "deepclr_tpu_torch.evaluation.__main__"} <= set(modules)
     code = (
         "import importlib, json, sys\n"
         f"for m in {modules!r}: importlib.import_module(m)\n"
@@ -85,6 +89,10 @@ def test_entry_points_default_to_cuda(tmp_path):
     with pytest.raises(RuntimeError, match="CUDA"):
         resolve_device("cuda")
     assert resolve_device("cpu") == torch.device("cpu")
+    from deepclr_tpu_torch.icp import ICPRegistration
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ICPRegistration("gicp")
 
     for device in ("tpu", "cuda"):
         path = tmp_path / f"{device}.yaml"
@@ -146,17 +154,19 @@ def test_build_rejects_configs_outside_the_slice(change):
 
 
 def test_inference_entry_point_imports_without_yaml_or_matplotlib():
-    """The CLI module, the evaluation package and the helpers import with
-    PyYAML and matplotlib unavailable (the card machine may lack both)."""
+    """The CLI modules, the evaluation package and the helpers import with
+    PyYAML, matplotlib and pandas unavailable (the card machine may lack
+    them)."""
     code = (
         "import sys\n"
         "class Block:\n"
         "    def find_spec(self, name, path=None, target=None):\n"
-        "        if name.split('.')[0] in ('yaml', 'matplotlib'):\n"
+        "        if name.split('.')[0] in ('yaml', 'matplotlib', 'pandas'):\n"
         "            raise ImportError(name)\n"
         "sys.meta_path.insert(0, Block())\n"
         "import deepclr_tpu_torch.inference, deepclr_tpu_torch.evaluation, deepclr_tpu_torch.config\n"
-        "print(sorted(k for k in sys.modules if k.split('.')[0] in ('yaml', 'matplotlib')))\n"
+        "import deepclr_tpu_torch.evaluation.cli, deepclr_tpu_torch.icp.cli, deepclr_tpu_torch.kitti_devkit.__main__\n"
+        "print(sorted(k for k in sys.modules if k.split('.')[0] in ('yaml', 'matplotlib', 'pandas')))\n"
     )
     env = dict(os.environ, PYTHONPATH=str(REPO))
     out = subprocess.run([sys.executable, "-c", code], env=env, cwd=REPO, capture_output=True, text=True,

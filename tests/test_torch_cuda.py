@@ -483,3 +483,66 @@ def test_train_from_a_yaml_on_ray_cast_packs(dev, tmp_path, monkeypatch):
     for tag in ("train/loss", "params/lr", "val/loss_fn", "val/step_t_err"):
         assert tags.get(tag) and np.isfinite(tags[tag]).all(), (tag, tags.get(tag))
     assert osp.islink(osp.join(cfg.output_dir, "weights.pt"))
+
+
+# --- the ICP baselines (deepclr_tpu_torch.icp): plain torch on the card ---------------------------
+
+def _wave(n, seed):
+    """The 'wave' surface cloud of tests/icp/test_gicp_parity.py."""
+    rng = np.random.default_rng(seed)
+    xy = rng.uniform(-6, 6, size=(n, 2))
+    z = 0.4 * np.sin(0.8 * xy[:, 0]) + 0.3 * np.cos(1.1 * xy[:, 1])
+    return np.column_stack([xy, z]).astype(np.float32)
+
+
+@pytest.mark.parametrize("k", [1, 8, 30])
+@pytest.mark.parametrize("masked", [False, True])
+def test_chunked_neighbors_on_card_equal_cpu(dev, k, masked):
+    """Grid points (integer distances, ties everywhere), a block of 333 that
+    does not divide the 5000 queries: indices and distances equal the CPU's."""
+    from deepclr_tpu_torch.icp import nearest_neighbors
+
+    rng = np.random.default_rng(k)
+    query = torch.from_numpy(np.round(rng.normal(size=(5000, 3)) * 4).astype(np.float32))
+    points = torch.from_numpy(np.round(rng.normal(size=(20000, 3)) * 4).astype(np.float32))
+    mask = torch.from_numpy(rng.random(20000) < 0.7) if masked else None
+    want = nearest_neighbors(query, points, k, points_mask=mask, block=333)
+    got = nearest_neighbors(query.to(dev), points.to(dev), k, points_mask=None if mask is None else mask.to(dev),
+                            block=333)
+    assert torch.equal(got[0].cpu(), want[0]) and torch.equal(got[1].cpu(), want[1])
+
+
+def test_neighbourhood_statistics_at_scan_size(dev):
+    """A 60000-point cloud (a ray-cast scan's size, more matrices than one
+    cuSOLVER batched call takes): finite normals of unit length, and
+    covariances with the flattened eigenvalues (1e-3, 1, 1)."""
+    from deepclr_tpu_torch.icp import estimate_covariances, estimate_normals
+
+    pts = torch.from_numpy(_wave(60000, 11)).to(dev)
+    normals = estimate_normals(pts)
+    assert normals.shape == (60000, 3) and bool(torch.isfinite(normals).all())
+    torch.testing.assert_close(normals.norm(dim=1), torch.ones(60000, device=dev), atol=1e-5, rtol=0)
+    lam = torch.linalg.eigvalsh(estimate_covariances(pts)[:4096])
+    torch.testing.assert_close(lam, torch.tensor([1e-3, 1.0, 1.0], device=dev).expand(4096, 3), atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("algorithm", ["icp_po2po", "icp_po2pl", "gicp"])
+def test_icp_on_card_matches_cpu(dev, algorithm):
+    """4096-point wave surface moved by 2 degrees and 0.17 m: the card's
+    transform within 1e-4 of the CPU's (float32 sums in other orders), the
+    iterations within one."""
+    from deepclr_tpu_torch.icp import ICPRegistration
+
+    cloud = _wave(4096, 10)
+    yaw = np.deg2rad(2.0)
+    gt = np.eye(4)
+    gt[:2, :2] = [[np.cos(yaw), -np.sin(yaw)], [np.sin(yaw), np.cos(yaw)]]
+    gt[:3, 3] = (0.15, -0.05, 0.02)
+    source = (cloud @ gt[:3, :3].T + gt[:3, 3]).astype(np.float32)
+    out = {}
+    for device in ("cpu", "cuda"):
+        reg = ICPRegistration(algorithm, max_distance=2.0, device=device)
+        out[device] = reg.register(reg.prepare(cloud), reg.prepare(source), return_info=True)
+    np.testing.assert_allclose(out["cuda"][0], out["cpu"][0], atol=1e-4, rtol=0)
+    assert abs(out["cuda"][1]["iterations"] - out["cpu"][1]["iterations"]) <= 1
+    np.testing.assert_allclose(out["cuda"][0] @ gt, np.eye(4), atol=2e-2)

@@ -5,6 +5,7 @@ accumulation against ``make_train_step``, kill and resume, and the weight
 bridge with a learned loss.  The same numpy inputs go through both."""
 import copy
 import re
+import signal
 from types import SimpleNamespace
 
 import numpy as np
@@ -346,6 +347,80 @@ def test_kill_and_resume_with_dropout_gives_the_uninterrupted_params(tmp_path):
     plain, _ = _trainer_run(tmp_path / "plain", 6, _Loader(batches))
     assert not torch.equal(plain.state_dict()["_merge_layers.1.linear._sequential.0._sequential.0.weight"],
                            ref["_merge_layers.1.linear._sequential.0._sequential.0.weight"])
+
+
+@pytest.fixture(scope="module")
+def uninterrupted(tmp_path_factory):
+    batches = [_batch(22, n=256)] * 2
+    full, _ = _trainer_run(tmp_path_factory.mktemp("full"), 6, _Loader(batches))
+    return batches, {k: v.clone() for k, v in full.state_dict().items()}
+
+
+class _SignalLoader(list):
+    """A sized list of batches whose iteration delivers SIGINT (through the
+    trainer's handler, in process) while it fetches batch ``at``."""
+
+    def __init__(self, batches, at):
+        super().__init__(batches)
+        self.at = at
+
+    def __iter__(self):
+        from deepclr_tpu_torch.engine import trainer
+
+        for i, b in enumerate(list.__iter__(self)):
+            if i == self.at:
+                trainer._sigint_handler(signal.SIGINT, None)
+            yield b
+
+
+@pytest.mark.parametrize("where,stopped_at", [("loader", 3), ("schedule", 3), ("train_step", 3), ("checkpoint", 2)])
+def test_sigint_anywhere_in_the_loop_leaves_a_checkpoint_of_whole_iterations(tmp_path, monkeypatch, uninterrupted,
+                                                                             where, stopped_at):
+    """SIGINT delivered in process, deterministically, at one point of the
+    loop: while the loader fetches the 4th batch, in the 3rd schedule call,
+    just after the 3rd train step updated the state in place, or in the
+    first periodic checkpoint (iteration 2).  The interrupt checkpoint's
+    iteration equals the micro-steps its state holds, the optimizer's update
+    count is that over the accumulation (2), and resuming from it gives the
+    uninterrupted run's weights bit for bit."""
+    from deepclr_tpu_torch.engine import trainer
+    from deepclr_tpu_torch.engine.checkpoint import Checkpointer, load_checkpoint
+
+    batches, ref = uninterrupted
+    deliver = trainer._sigint_handler
+    calls = []
+
+    def on_call(fn, n):
+        def wrapped(*args, **kwargs):
+            out = fn(*args, **kwargs)
+            calls.append(1)
+            if len(calls) == n:
+                deliver(signal.SIGINT, None)
+            return out
+        return wrapped
+
+    loader = _Loader(batches * 2)
+    if where == "loader":
+        loader = _SignalLoader(batches * 2, at=3)
+    elif where == "schedule":
+        monkeypatch.setattr(solver, "make_schedule", lambda cfg, f=solver.make_schedule: on_call(f(cfg), 3))
+    elif where == "train_step":
+        monkeypatch.setattr(trainer, "make_train_step", lambda *a, f=trainer.make_train_step, **k: on_call(
+            f(*a, **k), 3))
+    else:
+        monkeypatch.setattr(Checkpointer, "save_checkpoint", on_call(Checkpointer.save_checkpoint, 1))
+    _trainer_run(tmp_path / "cut", 6, loader)
+    monkeypatch.undo()
+
+    path = tmp_path / "cut" / f"ckpt_interrupt_{stopped_at}.pt"
+    assert [p.name for p in (tmp_path / "cut").glob("ckpt_interrupt_*.pt")] == [path.name]
+    ckpt = load_checkpoint(str(path))
+    assert ckpt["iteration"] == ckpt["state"]["step"] == stopped_at
+    assert {s["count"] for s in ckpt["state"]["optimizer"]["state"].values()} == {stopped_at // 2}
+    resumed, state = _trainer_run(tmp_path / "cut", 6, _Loader(batches * 2), checkpoint=str(path))
+    assert state.step == 6
+    for name, value in resumed.state_dict().items():
+        np.testing.assert_array_equal(value.numpy(), ref[name].numpy(), err_msg=name)
 
 
 def test_non_finite_loss_raises_and_writes_an_exception_checkpoint(tmp_path):
