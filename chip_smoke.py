@@ -123,7 +123,47 @@ Phases, in order; any failure raises and exits non-zero:
    the host) with the share spent in the per-iteration host reads and in
    the iteration loop, the device's busy share of the loop (CUDA events
    around each iteration), iterations, peak torch.cuda.max_memory_allocated,
-   the errors against the known motion, the nearest-neighbour block size.
+   the errors against the known motion, the nearest-neighbour block size;
+10. model variants (the exact set abstraction, with the reference's ball
+   query, and the variant modules), through the port's entry points:
+   (a) ops.ball_query_scales on the card against the CPU at the flagship's
+   scales (r 0.5 / nsample 512, r 1.0 / nsample 1024) on 32 KITTI-like
+   clouds of 16384 points (a masked tail, an all-masked cloud) around 1024
+   FPS centres, and on the dense cube (10 x 4096 points in 4 m, r 1.0,
+   nsample 64, where truncation bites): the indices equal on every ball
+   without a valid point within 1e-3 m^2 of r^2 (by exact float64
+   distances; the expanded float32 form may put such a point on either
+   side); (b) the flagship with fused: False (seed-0 weights, bf16) through
+   predict_batch on 16 pairs of 16384 points: output finite and (16, 8),
+   fps launched and min_d2 / fused_sa not; the same weights through the
+   fused model within 2e-2 on host-sorted clouds (presorted models: the
+   fused path otherwise Morton-sorts before FPS, which then starts at
+   another point), gated only when no ball exceeds its nsample (the
+   largest is printed; the unsorted difference too); the exact model on 2
+   pairs x 4096 within 2e-2 of the CPU; the fused-vs-exact drift at
+   float32 on a ray-cast KITTI batch of phase 8 with its trained weights,
+   as scripts/parity_fused_exact.py reports it, as loaded and host-sorted,
+   with the largest and truncated balls (printed, not gated); (c) the
+   exact flagship's train step through run_trainer at 5 x 16384 (2
+   micro-steps, one update): loss and every gradient finite, every
+   set-abstraction weight's gradient non-zero, fps launched and no fused
+   kernel; a float32 micro-step on 2 pairs x 4096 within 2e-3 of the CPU's
+   gradients; (d) MotionEmbedding with k=0, with append_features=False and
+   with batch norm, OutputSimple with batch norm and FeaturePropagation
+   with batch norm (running statistics from a training forward first), in
+   evaluation and training mode, card against CPU within 1e-5 (float32)
+   and 2e-2 (bf16) of max(1, max|CPU|), the running statistics too
+   (OutputSimple on the serving batch of 16 clouds, each with its own
+   offset and spread: its linear layers normalise over the batch alone);
+   the exact DeepCLR.forward on 16384-point templates and 12000-point
+   sources within 2e-2; (e) a reference-layout weights.tar
+   ((out, in, 1) convolution weights) through python -m
+   deepclr_tpu_torch.convert_weights and load_trained_model, both giving
+   the source model's predictions exactly; (f) timing (CUDA events,
+   medians after a warm-up): the exact forward's pairs/s at 16 x 16384
+   beside phase 6's fused figure, the ball query at each scale and both
+   from one distance pass, the grouped MLP, the exact train micro-step at
+   5 x 16384, peak allocated memory, the ball query's block size.
 
 Prints JSON lines; the one before the last two lists the kernels, then the
 card's name and power limit, and the last is {"ok": true, "device": {...}}.
@@ -558,14 +598,15 @@ def run_train_path(dev):
     return model, opt, loss_fn, metric_fns, counts, argmax_counts, batches
 
 
-def check_train_card_vs_cpu(dev, tol=2e-3):
+def check_train_card_vs_cpu(dev, tol=2e-3, fused=True):
     """One float32 micro-step on 2 pairs x 4096: every parameter's gradient
-    on the card against the CPU (plain twins), within tol of its scale."""
+    on the card against the CPU (plain twins), within tol of its scale; the
+    fused or the exact set abstraction."""
     from deepclr_tpu_torch.configs import KITTI_MODEL_CFG
     from deepclr_tpu_torch.synthetic import train_batch
 
     cfg = copy.deepcopy(KITTI_MODEL_CFG)
-    cfg["params"]["compute_dtype"] = "float32"
+    cfg["params"].update(compute_dtype="float32", fused=fused)
     batch = train_batch(2, 4096, seed=40)
     grads = {}
     for where, device in (("card", dev), ("cpu", torch.device("cpu"))):
@@ -577,7 +618,7 @@ def check_train_card_vs_cpu(dev, tol=2e-3):
     worst = max(((grads["card"][n] - g).abs().max() / max(1e-6, g.abs().max().item())).item()
                 for n, g in grads["cpu"].items())
     emit({"check": "train_card_vs_cpu_gradients", "pairs": 2, "points": 4096, "dtype": "float32",
-          "max_err_of_scale": worst, "tolerance": tol})
+          "fused": fused, "max_err_of_scale": worst, "tolerance": tol})
     if not worst <= tol:
         raise AssertionError(f"card vs CPU gradients differ by {worst} of their scale")
 
@@ -1346,7 +1387,8 @@ def run_yaml_training_phase(dev, card):
     ModelNet40 packs, a resume, inference from the run directory, and the
     timing of the loader, the micro-step, validation and the timing CLI.
     Returns (the 04 scenario, the Evaluator of the inference from the KITTI
-    run directory), which phase 9 scores."""
+    run directory), which phase 9 scores, and a ray-cast KITTI training
+    batch with the trained weights, for phase 10's drift report."""
     import io
 
     from deepclr_tpu_torch import timing
@@ -1401,6 +1443,10 @@ def run_yaml_training_phase(dev, card):
             if len(lines) != len(times["wall_ms"]) + 3 or len(times["wall_ms"]) != KITTI_SEQUENCES["04"] - 1:
                 raise AssertionError(f"timing: {len(lines)} lines for {len(times['wall_ms'])} pairs")
             batch = next(iter(make_data_loader(test_cfg, True)))
+            raycast = {"batch": batch, "weights_from": "phase 8's KITTI run (12 micro-steps)",
+                       "model_cfg": test_cfg.model.to_dict(),
+                       "weights": torch.load(osp.join(resumed.output_dir, "weights.pt"), map_location="cpu",
+                                             weights_only=True)}
             kitti_model = build_model(test_cfg.model, device=dev, seed=0)
             mn_cfg = load_config(osp.join(tmp, "modelnet40.yaml"), Mode.TEST)
             mn_batch = next(iter(make_data_loader(mn_cfg, True)))
@@ -1430,7 +1476,7 @@ def run_yaml_training_phase(dev, card):
                     os.environ[k] = v
     seconds = time.perf_counter() - start
     emit({"phase": "yaml_training", "seconds": seconds})
-    return kitti_scen, kitti_ev
+    return (kitti_scen, kitti_ev), raycast
 
 
 def write_run_dir(base, scen, method, params, ev):
@@ -1636,6 +1682,442 @@ def read_csv(path):
             "empty_fields": sum(v == "" for v in values)}
 
 
+EXACT_SCALES = ((0.5, 512), (1.0, 1024))  # the flagship's (radius, nsample) pairs, KITTI_MODEL_CFG
+BOUNDARY_M2 = 1e-3            # a ball with a point this close to r^2 may differ between devices
+VARIANT_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+DENSE_NSAMPLE = 64            # the dense cube at r = 1.0 (~190 points a ball): truncation bites
+
+
+def exact_cfg(compute_dtype="bfloat16"):
+    """The flagship KITTI configuration with fused: False (the exact path)."""
+    from deepclr_tpu_torch.configs import KITTI_MODEL_CFG
+
+    cfg = copy.deepcopy(KITTI_MODEL_CFG)
+    cfg["params"].update(fused=False, compute_dtype=compute_dtype)
+    return cfg
+
+
+def ball_stats(xyz, centres, radius, mask, block=64):
+    """Per ball, by exact float64 distances: the points inside, and whether
+    a valid point lies within BOUNDARY_M2 of r^2 (where the expanded float32
+    form may put it on either side)."""
+    counts, ambiguous = [], []
+    for lo in range(0, centres.shape[1], block):
+        d2 = ((centres[:, lo:lo + block, None].double() - xyz[:, None].double()) ** 2).sum(-1)
+        valid = mask[:, None] if mask is not None else torch.ones_like(d2, dtype=torch.bool)
+        counts.append(((d2 < radius * radius) & valid).sum(-1))
+        ambiguous.append((((d2 - radius * radius).abs() < BOUNDARY_M2) & valid).any(-1))
+    return torch.cat(counts, 1), torch.cat(ambiguous, 1)
+
+
+def compare_ball_query(tag, xyz, centres, mask, scales, dev):
+    """ops.ball_query_scales on the card against the same on the CPU: the
+    indices equal on every ball without a boundary point."""
+    from deepclr_tpu_torch import ops
+
+    card = ops.ball_query_scales(xyz, centres, [r for r, _ in scales], [n for _, n in scales], mask)
+    cpu = ops.ball_query_scales(xyz.cpu(), centres.cpu(), [r for r, _ in scales], [n for _, n in scales],
+                                None if mask is None else mask.cpu())
+    out = {}
+    for (radius, nsample), got, ref in zip(scales, card, cpu):
+        counts, ambiguous = ball_stats(xyz, centres, radius, mask)
+        differ = (got.cpu() != ref).any(-1)
+        bad = differ & ~ambiguous.cpu()
+        out[f"r{radius}_nsample{nsample}"] = {
+            "balls": differ.numel(), "balls_differ": int(differ.sum()), "balls_near_boundary": int(ambiguous.sum()),
+            "differ_off_boundary": int(bad.sum()), "largest_ball": int(counts.max()),
+            "truncated_balls": int((counts > nsample).sum()), "empty_balls": int((counts == 0).sum())}
+        if bad.any():
+            raise AssertionError(f"ball query {tag} r={radius}: {int(bad.sum())} balls without a boundary point "
+                                 "differ between card and CPU")
+    return out
+
+
+def check_ball_query(dev):
+    """Phase 10a: the flagship's scales at full width (32 clouds x 16384 ->
+    1024 FPS centres, a masked tail, an all-masked cloud) and the dense
+    cube at nsample 64, card against CPU."""
+    from deepclr_tpu_torch import ops
+    from deepclr_tpu_torch.synthetic import kitti_like
+
+    xyz = torch.from_numpy(kitti_like(2 * BATCH, NPTS, seed=70)[..., :3]).to(dev)
+    mask = torch.ones(2 * BATCH, NPTS, dtype=torch.bool, device=dev)
+    mask[1, NPTS * 3 // 4:] = False
+    mask[3] = False
+    centres = ops.gather_points(xyz, ops.furthest_point_sample(xyz, 1024, mask))
+    dense = torch.from_numpy(dense_clouds(10)[..., :3]).to(dev)
+    dense_centres = ops.gather_points(dense, ops.furthest_point_sample(dense, 1024))
+    return {f"kitti_like_{2 * BATCH}x{NPTS}": compare_ball_query("kitti-like", xyz, centres, mask, EXACT_SCALES, dev),
+            "dense_10x4096": compare_ball_query("dense", dense, dense_centres, None, ((1.0, DENSE_NSAMPLE),), dev)}
+
+
+def morton_sorted(batch):
+    """A padded batch with each cloud's valid points (a prefix) Morton-sorted
+    on the host, as ModelInferenceHelper sorts for a presorted model."""
+    from deepclr_tpu_torch.ops import morton_argsort_np
+
+    out = dict(batch)
+    for key in ("template", "source"):
+        clouds, mask = batch[key].copy(), batch[f"{key}_mask"]
+        for i in range(len(clouds)):
+            n = int(mask[i].sum())
+            if not mask[i, :n].all():
+                raise AssertionError("morton_sorted: the valid points are not a prefix")
+            clouds[i, :n] = clouds[i, :n][morton_argsort_np(clouds[i, :n, :3])]
+        out[key] = clouds
+    return out
+
+
+def raycast_drift(fused_f32, exact_f32, batch, dev):
+    """scripts/parity_fused_exact.py's report on one ray-cast KITTI batch:
+    the same weights through the fused and the exact path at float32, the
+    pose outputs' drift and each path's error against the labels."""
+    from deepclr_tpu_torch.geometry import LabelType, hostmath
+
+    b = {k: torch.from_numpy(v).to(dev) for k, v in batch.items() if k in (
+        "template", "source", "template_mask", "source_mask", "aug_template", "aug_source")}
+    args = [b.get(k) for k in ("template", "source", "template_mask", "source_mask", "aug_template", "aug_source")]
+    y_f = fused_f32(*args)[0].float().cpu().numpy()
+    y_e = exact_f32(*args)[0].float().cpu().numpy()
+    rows = []
+    for j in range(len(y_f)):
+        m_f, m_e, m_gt = (hostmath.label_to_matrix_np(LabelType.POSE3D_DUAL_QUAT, v[j])
+                          for v in (y_f, y_e, batch["y"]))
+
+        def rot_deg(m1, m2):
+            c = np.clip((np.trace(m1[:3, :3] @ m2[:3, :3].T) - 1.0) / 2.0, -1.0, 1.0)
+            return float(np.degrees(np.arccos(c)))
+
+        rows.append({"dy_fused_exact": float(np.abs(y_f[j] - y_e[j]).max()),
+                     "dt_fused_exact": float(np.linalg.norm(m_f[:3, 3] - m_e[:3, 3])),
+                     "dr_fused_exact": rot_deg(m_f, m_e),
+                     "t_err_fused": float(np.linalg.norm(m_f[:3, 3] - m_gt[:3, 3])),
+                     "t_err_exact": float(np.linalg.norm(m_e[:3, 3] - m_gt[:3, 3])),
+                     "r_err_fused": rot_deg(m_f, m_gt), "r_err_exact": rot_deg(m_e, m_gt)})
+    return {k: {"mean": float(np.mean([r[k] for r in rows])), "max": float(np.max([r[k] for r in rows]))}
+            for k in rows[0]}
+
+
+def run_exact_path(model, dev, raycast):
+    """Phase 10b: the exact flagship through predict_batch at 16 x 16384,
+    bf16, seed-0 weights (the phase-4 model's); the fused model on the
+    same clouds, the CPU on a small cut, the drift on a ray-cast batch."""
+    from deepclr_tpu_torch import ops
+    from deepclr_tpu_torch.models import ModelInferenceHelper, build_model
+    from deepclr_tpu_torch.synthetic import kitti_like
+
+    exact = build_model(exact_cfg(), device=dev)
+    exact.load_state_dict(model.state_dict())
+    templates, sources = kitti_like(BATCH, NPTS, seed=1), kitti_like(BATCH, NPTS, seed=2)
+    ops.reset_launch_counts()
+    y = ModelInferenceHelper(exact, num_points=NPTS).predict_batch(list(sources), list(templates))
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    if y.shape != (BATCH, 8) or not np.isfinite(y).all():
+        raise AssertionError(f"exact predict_batch: shape {y.shape}, finite {np.isfinite(y).all()}")
+    if counts["fps"] < 1 or any(counts[k] for k in ("min_d2", "fused_sa", "fused_sa_argmax", "fused_sa_bwd")):
+        raise AssertionError(f"exact predict_batch: launches {counts}")
+
+    # the fused model on the same clouds.  The fused path Morton-sorts the
+    # points before FPS, so FPS starts elsewhere and picks other centres:
+    # the two agree only on host-sorted clouds (presorted models, the same
+    # order for both), and there only where no ball exceeds its nsample
+    xyz = torch.from_numpy(np.concatenate([sources, templates])[..., :3]).to(dev)
+    centres = ops.gather_points(xyz, ops.furthest_point_sample(xyz, 1024))
+    largest = {f"r{r}": int(ball_stats(xyz, centres, r, None)[0].max()) for r, _ in EXACT_SCALES}
+    y_fused = ModelInferenceHelper(model, num_points=NPTS).predict_batch(list(sources), list(templates))
+    unsorted_err = float(np.abs(y - y_fused).max())
+    y_sorted = {}
+    for fused in (True, False):
+        cfg = exact_cfg()
+        cfg["params"].update(fused=fused, presorted=True)
+        m = build_model(cfg, device=dev)
+        m.load_state_dict(model.state_dict())
+        y_sorted[fused] = ModelInferenceHelper(m, num_points=NPTS).predict_batch(list(sources), list(templates))
+    fused_err = float(np.abs(y_sorted[True] - y_sorted[False]).max())
+    gated = all(largest[f"r{r}"] < n for r, n in EXACT_SCALES)
+    if gated and not fused_err <= VARIANT_TOL["bfloat16"]:
+        raise AssertionError(f"exact vs fused on presorted clouds, balls within nsample: {fused_err}")
+
+    cpu = build_model(exact_cfg(), device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    small_t, small_s = kitti_like(2, 4096, seed=5), kitti_like(2, 4096, seed=6)
+    y_card = ModelInferenceHelper(exact, num_points=4096).predict_batch(list(small_s), list(small_t))
+    y_cpu = ModelInferenceHelper(cpu, num_points=4096).predict_batch(list(small_s), list(small_t))
+    cpu_err = float(np.abs(y_card - y_cpu).max())
+    if not cpu_err <= VARIANT_TOL["bfloat16"]:
+        raise AssertionError(f"exact model card vs CPU: {cpu_err}")
+
+    drift = {}
+    for order in ("as_loaded", "host_sorted"):
+        f32 = {}
+        for name in ("fused", "exact"):
+            cfg = copy.deepcopy(raycast["model_cfg"])
+            cfg["params"].update(fused=name == "fused", compute_dtype="float32", presorted=order == "host_sorted")
+            f32[name] = build_model(cfg, device=dev)
+            f32[name].load_state_dict(raycast["weights"])
+        batch = raycast["batch"] if order == "as_loaded" else morton_sorted(raycast["batch"])
+        drift[order] = raycast_drift(f32["fused"], f32["exact"], batch, dev)
+    xyz = torch.from_numpy(np.concatenate([raycast["batch"]["template"], raycast["batch"]["source"]])[..., :3]).to(dev)
+    mask = torch.from_numpy(np.concatenate([raycast["batch"]["template_mask"], raycast["batch"]["source_mask"]])).to(dev)
+    centres = ops.gather_points(xyz, ops.furthest_point_sample(xyz, 1024, mask))
+    raycast_balls = {}
+    for r, n in EXACT_SCALES:
+        counts_r = ball_stats(xyz, centres, r, mask)[0]
+        raycast_balls[f"r{r}"] = {"largest": int(counts_r.max()), "truncated_balls": int((counts_r > n).sum()),
+                                  "balls": counts_r.numel()}
+    emit({"check": "exact_path", "predict_batch_y0": y[0].tolist(), "launches_predict_batch": counts,
+          "vs_fused_presorted_max_abs_err": fused_err, "vs_fused_unsorted_max_abs_err": unsorted_err,
+          "largest_ball_serving": largest, "vs_fused_gated": gated,
+          "card_vs_cpu_2x4096_max_abs_err": cpu_err, "tolerance": VARIANT_TOL["bfloat16"],
+          "raycast_fused_vs_exact_f32": drift, "raycast_balls": raycast_balls,
+          "raycast_weights": raycast["weights_from"]})
+    return exact, templates, sources
+
+
+def run_exact_train(dev):
+    """Phase 10c: the exact flagship's train step through run_trainer at
+    5 x 16384 (2 micro-steps, one update), then a float32 micro-step on
+    2 x 4096 against the CPU."""
+    from deepclr_tpu_torch import ops
+    from deepclr_tpu_torch.configs import KITTI_TRAIN_CFG
+    from deepclr_tpu_torch.engine import run_trainer
+    from deepclr_tpu_torch.synthetic import train_batch
+
+    model, opt, schedule, loss_fn, metric_fns = train_parts(exact_cfg(), dev)
+    sa_names = [n for n, _ in model.named_parameters() if n.startswith("_cloud_layers") and n.endswith("weight")]
+    seen = []
+
+    def inspect_grads(optimizer, args, kwargs):
+        grads = {n: p.grad for n, p in model.named_parameters()}
+        seen.append({"non_finite_or_missing": [n for n, g in grads.items() if g is None or not torch.isfinite(g).all()],
+                     "zero_sa_weight_grads": [n for n in sa_names if grads[n].abs().max().item() == 0.0]})
+
+    hook = opt.register_step_pre_hook(inspect_grads)
+    cfg = copy.deepcopy(KITTI_TRAIN_CFG)
+    cfg["optimizer"]["max_iterations"] = 2
+    cfg["logging"].update(log_period=1, checkpoint_period=10**9)
+    batches = [train_batch(TRAIN_BATCH, NPTS, seed=80 + i) for i in range(2)]
+    ops.reset_launch_counts()
+    state = run_trainer(cfg, model, batches, None, opt, schedule, loss_fn, metric_fns)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    hook.remove()
+    ema = {k: v.item() for k, v in state.metrics_ema.items()}
+    emit({"check": "exact_train_path", "micro_steps": state.step, "metrics_ema": ema, "grad_checks": seen,
+          "launches_2_micro_steps": counts})
+    if state.step != 2 or len(seen) != 1 or seen[0]["non_finite_or_missing"] or seen[0]["zero_sa_weight_grads"]:
+        raise AssertionError(f"exact train path: {state.step} micro-steps, gradient checks {seen}")
+    if not all(np.isfinite(v) for v in ema.values()):
+        raise AssertionError(f"exact train path: loss {ema}")
+    if counts["fps"] < 1 or any(counts[k] for k in ("min_d2", "fused_sa", "fused_sa_argmax", "fused_sa_bwd")):
+        raise AssertionError(f"exact train path: launches {counts}")
+    check_train_card_vs_cpu(dev, fused=False)
+    return model, opt, loss_fn, metric_fns, batches
+
+
+def variant_modules(dtype):
+    """Small instances of every variant module, seeded; (name, module, inputs)."""
+    from deepclr_tpu_torch.geometry import LabelType
+    from deepclr_tpu_torch.models import FeaturePropagation, MotionEmbedding, OutputSimple, init_params
+
+    cd = {"float32": torch.float32, "bfloat16": torch.bfloat16}[dtype]
+    rng = np.random.default_rng(90)
+
+    def feats(b, p, c, scale=5.0):
+        return torch.from_numpy(np.concatenate([rng.normal(size=(b, p, 3)) * scale, rng.normal(size=(b, p, c))],
+                                               -1).astype(np.float32))
+
+    def per_cloud(b, p, c):
+        # each cloud its own offset and spread: the head's linear layers
+        # normalise over the batch alone, and pooled features of iid clouds
+        # differ so little across it that E[x^2] - E[x]^2 cancels
+        return torch.from_numpy((rng.normal(size=(b, 1, c)) * 2.0 + rng.normal(size=(b, p, c))
+                                 * rng.uniform(0.5, 2.0, size=(b, 1, 1))).astype(np.float32))
+
+    def grid(b, p):
+        return torch.from_numpy((np.round(rng.normal(size=(b, p, 3)) * 64) / 64).astype(np.float32))
+
+    f0, f1 = feats(2, 256, 64), feats(2, 256, 64)
+    me = dict(feat_dim=64, mlp=[128, 128, 256], compute_dtype=cd)
+    out = [("motion_embedding_k0", MotionEmbedding(k=0, radius=10.0, **me), (f0, f1)),
+           ("motion_embedding_append_features_false", MotionEmbedding(k=20, append_features=False, **me), (f0, f1)),
+           ("motion_embedding_batch_norm", MotionEmbedding(k=20, batch_norm=True, **me), (f0, f1)),
+           ("output_simple_batch_norm", OutputSimple(259, [256, 512, 1024], [1024, 512, 256],
+                                                     LabelType.POSE3D_DUAL_QUAT, batch_norm=True, compute_dtype=cd),
+            (per_cloud(BATCH, 256, 259),)),
+           # coordinates on a 1/64 grid, so every distance is exact on both
+           # devices: the expanded form (JAX's) cancels ~1e-7 of |x|^2, which
+           # moves the weights of close neighbours by ~4e-5 at unit scale
+           ("feature_propagation_batch_norm", FeaturePropagation(68, [64, 32], batch_norm=True, compute_dtype=cd),
+            (grid(2, 1024), grid(2, 256), torch.from_numpy(
+                rng.normal(size=(2, 1024, 4)).astype(np.float32)), torch.from_numpy(
+                rng.normal(size=(2, 256, 64)).astype(np.float32)), torch.ones(2, 256, dtype=torch.bool)))]
+    out[-1][2][4][1, 200:] = False
+    for i, (_, module, inputs) in enumerate(out):
+        init_params(module, 100 + i)
+        with torch.no_grad():  # running statistics of a batch, so evaluation mode normalises too
+            module.train()(*inputs)
+        module.eval()
+    return out
+
+
+def check_variants(dev):
+    """Phase 10d: each variant module in evaluation and training mode (the
+    running statistics too) on the card against the CPU, float32 and bf16;
+    then DeepCLR.forward on 16384-point templates and 12000-point sources."""
+    from deepclr_tpu_torch.models import build_model
+    from deepclr_tpu_torch.synthetic import kitti_like
+
+    errs = {}
+    for dtype, tol in VARIANT_TOL.items():
+        for name, module, inputs in variant_modules(dtype):
+            for train in (False, True):
+                results = {}
+                for where, device in (("card", dev), ("cpu", torch.device("cpu"))):
+                    m = copy.deepcopy(module).to(device).train(train)
+                    with torch.no_grad():
+                        y = m(*[x.to(device) for x in inputs]).float().cpu()
+                    results[where] = (y, {k: v.cpu() for k, v in m.state_dict().items() if "running" in k})
+                (y_card, s_card), (y_cpu, s_cpu) = results["card"], results["cpu"]
+                err = ((y_card - y_cpu).abs().max() / max(1.0, y_cpu.abs().max().item())).item()
+                stat_err = max([((s_card[k] - v).abs().max() / max(1.0, v.abs().max().item())).item()
+                                for k, v in s_cpu.items()] or [0.0])
+                errs[f"{name}/{dtype}/{'train' if train else 'eval'}"] = {"output": err, "running_stats": stat_err}
+                if not (err <= tol and stat_err <= tol):
+                    raise AssertionError(f"{name} {dtype} train={train}: card vs CPU {err}, statistics {stat_err}")
+
+    t = torch.from_numpy(kitti_like(2, NPTS, seed=91))
+    s = torch.from_numpy(kitti_like(2, 12000, seed=92))
+    ys = {}
+    for where, device in (("card", dev), ("cpu", torch.device("cpu"))):
+        model = build_model(exact_cfg(), device=device, seed=4)
+        with torch.no_grad():
+            ys[where] = model(t.to(device), s.to(device))[0].float().cpu()
+    err = (ys["card"] - ys["cpu"]).abs().max().item()
+    errs[f"deepclr_forward_{NPTS}_vs_12000/bfloat16"] = {"output": err}
+    if not err <= VARIANT_TOL["bfloat16"]:
+        raise AssertionError(f"DeepCLR.forward on differently padded clouds: card vs CPU {err}")
+    emit({"check": "variants_card_vs_cpu", "max_err_of_scale": errs, "tolerance": VARIANT_TOL})
+
+
+def check_weight_files(exact, dev):
+    """Phase 10e: a reference-layout weights.tar (the exact model's state
+    dict with (out, in, 1) convolution weights) through python -m
+    deepclr_tpu_torch.convert_weights and load_trained_model: the
+    predictions equal the source model's."""
+    import yaml
+
+    from deepclr_tpu_torch.config import load_model_config
+    from deepclr_tpu_torch.models import ModelInferenceHelper, load_trained_model
+    from deepclr_tpu_torch.synthetic import kitti_like
+
+    t, s = kitti_like(2, 4096, seed=93), kitti_like(2, 4096, seed=94)
+
+    def predict(model):
+        return ModelInferenceHelper(model, num_points=4096).predict_batch(list(s), list(t))
+
+    want = predict(exact)
+    with tempfile.TemporaryDirectory() as tmp:
+        ref = {k: (v.unsqueeze(-1) if k.endswith("weight") and v.dim() == 2 and "output" not in k else v).cpu()
+               for k, v in exact.state_dict().items()}
+        tar, cfg_path, out = osp.join(tmp, "weights.tar"), osp.join(tmp, "model_config.yaml"), osp.join(tmp, "w.pt")
+        torch.save(ref, tar)
+        with open(cfg_path, "w") as f:
+            yaml.safe_dump(exact_cfg(), f)
+        t0 = time.perf_counter()
+        done = subprocess.run([sys.executable, "-m", "deepclr_tpu_torch.convert_weights", tar, cfg_path, out],
+                              cwd=REPO, env=dict(os.environ, PYTHONPATH=REPO), capture_output=True, text=True,
+                              timeout=300)
+        if done.returncode != 0:
+            raise AssertionError(f"convert_weights failed: {done.stderr[-2000:]}")
+        convert_s = time.perf_counter() - t0
+        got = {name: predict(load_trained_model(load_model_config(cfg_path, path), path, device=dev))
+               for name, path in (("weights_pt", out), ("weights_tar", tar))}
+    same = {name: bool(np.array_equal(y, want)) for name, y in got.items()}
+    emit({"check": "weight_files", "predictions_equal": same, "convert_weights_s": convert_s,
+          "convert_weights_stdout": done.stdout.strip()})
+    if not all(same.values()):
+        raise AssertionError(f"converted weights predict otherwise: {same}")
+
+
+def time_exact(exact, dev, templates, sources, train_parts_, fused_pairs_per_s, card):
+    """Phase 10f: the exact path's forward rate at 16 x 16384, its ball
+    query and grouped MLP, the exact train micro-step at 5 x 16384, peak
+    memory; CUDA events, medians after a warm-up."""
+    from deepclr_tpu_torch import ops
+    from deepclr_tpu_torch.engine import create_train_state, make_train_step
+    from deepclr_tpu_torch.ops import ball_grouping as bq
+
+    t = torch.from_numpy(templates).to(dev)
+    s = torch.from_numpy(sources).to(dev)
+    ones = torch.ones(BATCH, NPTS, dtype=torch.bool, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.inference_mode():
+        fwd_ms = cuda_ms(lambda: exact(t, s, ones, ones), reps=5)
+    fwd_peak = torch.cuda.max_memory_allocated()
+
+    sa = exact.cloud_features._sa0
+    both = torch.cat([t, s])
+    xyz, feats, mask = both[..., :3].contiguous(), both[..., 3:].contiguous(), torch.cat([ones, ones])
+    with torch.inference_mode():
+        centres = ops.gather_points(xyz, ops.furthest_point_sample(xyz, sa.npoint, mask))
+        bq_ms = {f"r{r}_nsample{n}": cuda_ms(lambda r=r, n=n: ops.ball_query(xyz, centres, r, n, mask), reps=5)
+                 for r, n in EXACT_SCALES}
+        bq_ms["both_scales_one_distance_pass"] = cuda_ms(
+            lambda: ops.ball_query_scales(xyz, centres, sa.radii, sa.nsamples, mask), reps=5)
+        indices = ops.ball_query_scales(xyz, centres, sa.radii, sa.nsamples, mask)
+        mlp_ms = cuda_ms(lambda: sa.grouped_mlp(xyz, feats, centres, indices), reps=5)
+
+    model, opt, loss_fn, metric_fns, batches = train_parts_
+    step = make_train_step(model, opt, loss_fn, metric_fns, accumulation_steps=2)
+    state = create_train_state(model)
+    dev_batches = [{k: torch.from_numpy(v).to(dev) for k, v in b.items()} for b in batches]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for i in range(8):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        step(state, dev_batches[i % len(dev_batches)], 1e-6)
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    train_peak = torch.cuda.max_memory_allocated()
+    train_ms = statistics.median(times[2:])
+    metrics = {"exact_forward_pairs_per_s": BATCH / (fwd_ms / 1e3), "exact_forward_ms": fwd_ms,
+               "fused_forward_pairs_per_s_phase6": fused_pairs_per_s,
+               f"ball_query_ms_{2 * BATCH}x{NPTS}_to_{sa.npoint}": bq_ms, "grouped_mlp_ms_both_scales": mlp_ms,
+               "exact_train_micro_step_ms": train_ms, "exact_train_micro_step_ms_each": times,
+               "exact_train_pairs_per_s": TRAIN_BATCH / (train_ms / 1e3),
+               "peak_allocated_gb_forward_16_pairs": fwd_peak / 1e9,
+               "peak_allocated_gb_train_micro_step": train_peak / 1e9,
+               "ball_query_block_centres": bq.block_centres(2 * BATCH, sa.npoint, NPTS),
+               "ball_query_scratch_bytes": bq.SCRATCH_BYTES, "compute_dtype": str(sa.compute_dtype)}
+    emit({"exact_path_timing": metrics, "card": card})
+    return metrics
+
+
+def run_variants_phase(model, dev, card, fused_pairs_per_s, raycast):
+    """Phase 10: the model variants the JAX package builds, through the
+    port's entry points: the exact flagship (ball query, nsample
+    truncation) serving and training at full width, the variant modules
+    card against CPU, the weight files, and the exact path's timing."""
+    start = time.perf_counter()
+    with torch.inference_mode():
+        bq = check_ball_query(dev)
+        emit({"check": "ball_query_card_vs_cpu", "scales": bq, "boundary_m2": BOUNDARY_M2})
+        exact, templates, sources = run_exact_path(model, dev, raycast)
+    train = run_exact_train(dev)
+    check_variants(dev)
+    with torch.inference_mode():
+        check_weight_files(exact, dev)
+    metrics = time_exact(exact, dev, templates, sources, train, fused_pairs_per_s, card)
+    emit({"phase": "model_variants", "seconds": time.perf_counter() - start})
+    return metrics
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke needs a CUDA card",
@@ -1680,9 +2162,10 @@ def main():
     with torch.inference_mode():
         frames, _, deepclr_run = run_scenario_phase(model, dev)
         time_scenario(model, dev, frames, metrics["forward_pairs_per_s"], card)
-    trained_run = run_yaml_training_phase(dev, card)
+    trained_run, raycast = run_yaml_training_phase(dev, card)
     with torch.inference_mode():
         run_icp_phase(dev, card, {"deepclr_phase7": deepclr_run, "deepclr_phase8_04": trained_run})
+    run_variants_phase(model, dev, card, metrics["forward_pairs_per_s"], raycast)
     launches = {**{k: serve_counts[k] for k in SERVING_KERNELS},
                 "fused_sa_bwd": train_counts["fused_sa_bwd"],
                 "fused_sa_argmax": argmax_counts["fused_sa_argmax"]}

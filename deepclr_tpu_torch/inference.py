@@ -5,7 +5,8 @@
         [--upload_dtype float32|uint16] [--parallel_sequences N] [--device cuda|cpu]
 
 Loads ``model_config.yaml`` and the weights (``weights.pt``, the state dict
-that training writes) from MODEL_PATH/MODEL_NAME, registers every data file
+that training writes, or a JAX ``weights.msgpack`` or reference
+``weights.tar``; ``models.load_weights``) from MODEL_PATH/MODEL_NAME, registers every data file
 of the scenario, times every prediction, and writes
 OUTPUT_BASE/{stamp}_{scenario}_{MODEL_TYPE}/ with ``scenario.yaml`` (its
 ``method`` entry filled in) and one 26-column text file per sequence, which
@@ -208,7 +209,8 @@ def main(argv=None) -> None:
     parser.add_argument("--model_path", type=str, default=None,
                         help="alternative model path instead of MODEL_PATH")
     parser.add_argument("--weights", type=str, default="weights.pt",
-                        help="model weights, a state dict (default: weights.pt)")
+                        help="model weights: a state dict, a JAX .msgpack or a reference .tar "
+                             "(default: weights.pt)")
     parser.add_argument("--num_points", type=int, default=DEFAULT_NUM_POINTS,
                         help="fixed padded cloud size")
     parser.add_argument("--upload_dtype", type=str, default="float32", choices=UPLOAD_DTYPES,

@@ -1,6 +1,8 @@
 """Model construction from the reference model-config schema, a seeded
-parameter initialization, and the model's weights file (``weights.pt``, the
-state dict that ``engine.checkpoint`` writes)."""
+parameter initialization, and the model's weights file: this package's
+``weights.pt`` (the state dict that ``engine.checkpoint`` writes), a JAX
+package's ``weights.msgpack`` / ``ckpt_*.msgpack``, or a reference
+``weights.tar`` / ``ckpt.tar``."""
 from __future__ import annotations
 
 import enum
@@ -13,9 +15,12 @@ from torch import nn
 
 from ..device import resolve_device, strict_float32
 from ..geometry import LabelType
+from .convert import load_jax_params
 from .deepclr import (AccumulatedLoss, DeepCLR, MotionEmbedding, OutputSimple, SetAbstraction,
                       TransformLoss, TransformUncertaintyLoss)
-from .layers import Dense
+from .flax_msgpack import read_flax_msgpack
+from .layers import BatchNorm, Dense
+from .torch_convert import load_reference_checkpoint
 
 __all__ = ["ModelType", "build_model", "init_params", "load_trained_model", "load_weights", "save_weights"]
 
@@ -45,11 +50,14 @@ def init_params(model: nn.Module, seed: int = 0) -> nn.Module:
     """Draw every parameter anew from a ``torch.Generator`` seeded with
     ``seed``, in module order, on the CPU (so a seed gives the same weights on
     any device): He-normal SA weights, Xavier-uniform MLP and head weights,
-    zero biases except the head's identity bias."""
+    zero biases except the head's identity bias; batch norms at scale 1,
+    bias 0, running mean 0 and variance 1."""
     gen = torch.Generator().manual_seed(seed)
     for module in model.modules():
         if isinstance(module, Dense):
             module.reset_parameters(gen)
+        elif isinstance(module, BatchNorm):
+            module.reset_parameters()
     return model
 
 
@@ -71,7 +79,8 @@ def _loss_module(loss_cfg, label_type: LabelType):
 def build_model(model_cfg, device="cuda", seed: int = 0) -> DeepCLR:
     """Build DeepCLR from a model config dict or ``Config`` tree (input_dim,
     point_dim, label_type, model_type, params{batch_norm, dropout,
-    compute_dtype, presorted, cloud_features, merge, output[, loss]}),
+    compute_dtype, fused, presorted, cloud_features, merge, output[,
+    loss]}),
     initialize it from ``seed`` and put it in eval mode on ``device``.
     ``seed`` also seeds the pose head's dropout generator.  Runs on CUDA
     unless ``device='cpu'``; raises when CUDA is asked for and absent."""
@@ -84,13 +93,12 @@ def build_model(model_cfg, device="cuda", seed: int = 0) -> DeepCLR:
     input_dim = int(model_cfg.get("input_dim", 3))
     point_dim = int(model_cfg.get("point_dim", 3))
     params = dict(model_cfg.get("params") or {})
-    if not params.get("fused", True):
-        raise NotImplementedError("the exact (ball_query) SA path is not ported")
     common = dict(batch_norm=bool(params.get("batch_norm", False)),
                   compute_dtype=_DTYPES[str(params.get("compute_dtype", "float32"))])
 
     cloud_features = SetAbstraction(input_dim, **_section(params, "cloud_features", "SetAbstraction"),
-                                    presorted=bool(params.get("presorted", False)), **common)
+                                    presorted=bool(params.get("presorted", False)),
+                                    fused=bool(params.get("fused", True)), **common)
     merge = MotionEmbedding(cloud_features.out_dim - point_dim, point_dim=point_dim,
                             **_section(params, "merge", "MotionEmbedding"), **common)
     mlp_out = merge.mlp.dense(len(merge.mlp) - 1).weight.shape[0]
@@ -110,11 +118,30 @@ def save_weights(path: str, model: nn.Module) -> None:
     os.replace(tmp, path)
 
 
+def _state_dict_of(path: str) -> dict:
+    """The state dict in a weights file, by its suffix: ``.msgpack`` a JAX
+    variables dict or a JAX checkpoint (its state's params and batch
+    statistics), ``.tar`` a reference checkpoint, anything else this
+    package's ``torch.save`` of a state dict."""
+    if path.endswith(".msgpack"):
+        tree = read_flax_msgpack(path)
+        if isinstance(tree, dict) and isinstance(tree.get("state"), dict):  # ckpt_*.msgpack
+            state = tree["state"]
+            tree = {"params": state["params"], **({"batch_stats": state["batch_stats"]}
+                                                  if state.get("batch_stats") else {})}
+        return load_jax_params(tree)
+    if path.endswith(".tar"):
+        return load_reference_checkpoint(path)
+    return torch.load(path, map_location="cpu", weights_only=True)
+
+
 def load_weights(path: str, model: nn.Module) -> nn.Module:
-    """Load a state dict written by ``save_weights`` (or a ``weights_*.pt``
-    of a checkpoint) into ``model``, every key required; returns the model."""
-    device = next(model.parameters()).device
-    model.load_state_dict(torch.load(path, map_location=device, weights_only=True), strict=True)
+    """Load a weights file into ``model``, every key required and every
+    shape checked: a state dict written by ``save_weights`` (or a
+    ``weights_*.pt`` of a checkpoint), a JAX ``weights.msgpack`` /
+    ``ckpt_*.msgpack``, or a reference ``weights.tar`` / ``ckpt.tar``.
+    Returns the model."""
+    model.load_state_dict(_state_dict_of(path), strict=True)
     return model
 
 

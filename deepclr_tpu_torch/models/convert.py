@@ -1,4 +1,4 @@
-"""Weight bridge: the JAX package's parameter tree -> this package's state dict.
+"""Weight bridge: the JAX package's variables -> this package's state dict.
 
     cloud_features/sa{j}/scale{s}_{w,b}{i} -> _cloud_layers.0._sa{j}.mlps.{s}.layer{i}.conv.{weight,bias}
     merge/mlp/dense_{i}/{kernel,bias}      -> _merge_layers.0._embedding._conv._sequential.{i}._sequential.0.*
@@ -8,9 +8,17 @@
     loss_module/{sx,sq}                    -> _loss_layer._{sx,sq}
     loss_module/losses_{i}/{sx,sq}         -> _loss_layer.losses.{i}._{sx,sq}
 
+and for a batch-norm MLP's layer i, beside its Dense:
+
+    params      .../bn_{i}/{scale,bias} -> ..._sequential.{i}._sequential.1.{weight,bias}
+    batch_stats .../bn_{i}/{mean,var}   -> ..._sequential.{i}._sequential.1.running_{mean,var}
+
 Kernels are (in, out); weights here are (out, in).  The names are the
-reference PyTorch DeepCLR state-dict keys, so the JAX package's
-``convert_torch_state_dict(state_dict, strict=True)`` inverts this map.
+reference PyTorch DeepCLR state-dict keys, so for a model without batch
+norm the JAX package's ``convert_torch_state_dict(state_dict, strict=True)``
+inverts this map.  ``load_jax_feature_propagation_params`` does the same
+for a ``FeaturePropagation`` module's variables (``mlp/dense_{i}``,
+``mlp/bn_{i}`` -> ``mlp._sequential.{i}._sequential.{0,1}``).
 """
 from __future__ import annotations
 
@@ -20,7 +28,7 @@ from typing import Dict, Mapping
 import numpy as np
 import torch
 
-__all__ = ["load_jax_params"]
+__all__ = ["load_jax_feature_propagation_params", "load_jax_params"]
 
 
 def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
@@ -41,28 +49,65 @@ def _contiguous(indices, what: str):
     return indices
 
 
+class _Tree:
+    """The flattened params and batch statistics of a variables dict, with
+    the strict checks: a missing entry raises KeyError, an unused one
+    ValueError (``finish``)."""
+
+    def __init__(self, variables: Mapping):
+        if "params" in variables:
+            extra = set(variables) - {"params", "batch_stats"}
+            if extra:
+                raise ValueError(f"JAX variables hold collections the weight bridge does not use: {sorted(extra)}")
+            params, stats = variables["params"], variables.get("batch_stats") or {}
+        else:
+            params, stats = variables, {}
+        self.flat = {**_flatten(params), **{f"batch_stats:{k}": v for k, v in _flatten(stats).items()}}
+        self.used = set()
+        self.state: Dict[str, torch.Tensor] = {}
+
+    def take(self, key: str) -> np.ndarray:
+        if key not in self.flat:
+            raise KeyError(f"missing JAX parameter {key!r}")
+        self.used.add(key)
+        return self.flat[key]
+
+    def put(self, key: str, value: np.ndarray) -> None:
+        self.state[key] = torch.from_numpy(np.array(value, np.float32))
+
+    def mlp(self, src: str, dst: str, required: bool) -> None:
+        """An MLP's Dense layers and, where it has them, its batch norms."""
+        pat = re.compile(re.escape(src) + r"/dense_(\d+)/kernel")
+        layers = [int(m.group(1)) for m in map(pat.fullmatch, self.flat) if m]
+        if required and not layers:
+            raise KeyError(f"missing JAX parameters under {src}/")
+        for i in _contiguous(layers, src):
+            layer = f"{dst}._sequential.{i}._sequential."
+            self.put(layer + "0.weight", self.take(f"{src}/dense_{i}/kernel").T)
+            self.put(layer + "0.bias", self.take(f"{src}/dense_{i}/bias"))
+            if f"{src}/bn_{i}/scale" in self.flat:
+                self.put(layer + "1.weight", self.take(f"{src}/bn_{i}/scale"))
+                self.put(layer + "1.bias", self.take(f"{src}/bn_{i}/bias"))
+                self.put(layer + "1.running_mean", self.take(f"batch_stats:{src}/bn_{i}/mean"))
+                self.put(layer + "1.running_var", self.take(f"batch_stats:{src}/bn_{i}/var"))
+
+    def finish(self) -> Dict[str, torch.Tensor]:
+        unused = sorted(set(self.flat) - self.used)
+        if unused:
+            raise ValueError(f"JAX parameters not used by the weight bridge: {unused}")
+        return self.state
+
+
 def load_jax_params(params: Mapping) -> Dict[str, torch.Tensor]:
-    """JAX ``params`` (nested dict of arrays; a ``{"params": ...}`` variables
-    dict is unwrapped) -> state dict for ``DeepCLR.load_state_dict``.
+    """JAX variables (``{"params": ..., "batch_stats": ...}``, or the params
+    tree alone; nested dicts of arrays) -> state dict for
+    ``DeepCLR.load_state_dict``.
 
     Raises KeyError on a missing entry (a weight without its bias, a gap in
-    layer indices, no pose head) and ValueError on an entry the map does not
-    use."""
-    if set(params) == {"params"}:
-        params = params["params"]
-    flat = _flatten(params)
-    used = set()
-    state: Dict[str, torch.Tensor] = {}
-
-    def take(key: str) -> np.ndarray:
-        if key not in flat:
-            raise KeyError(f"missing JAX parameter {key!r}")
-        used.add(key)
-        return flat[key]
-
-    def put(key: str, value: np.ndarray) -> None:
-        state[key] = torch.from_numpy(np.array(value, np.float32))
-
+    layer indices, no pose head, a batch norm without its statistics) and
+    ValueError on an entry the map does not use."""
+    tree = _Tree(params)
+    flat = tree.flat
     sa_re = re.compile(r"cloud_features/sa(\d+)/scale(\d+)_w(\d+)")
     found: Dict[int, Dict[int, set]] = {}
     for key in flat:
@@ -77,23 +122,14 @@ def load_jax_params(params: Mapping) -> Dict[str, torch.Tensor]:
             for layer in _contiguous(found[stage][scale], f"sa{stage} scale{scale} layers"):
                 src = f"cloud_features/sa{stage}/scale{scale}_"
                 dst = f"_cloud_layers.0._sa{stage}.mlps.{scale}.layer{layer}.conv."
-                put(dst + "weight", take(f"{src}w{layer}").T)
-                put(dst + "bias", take(f"{src}b{layer}"))
+                tree.put(dst + "weight", tree.take(f"{src}w{layer}").T)
+                tree.put(dst + "bias", tree.take(f"{src}b{layer}"))
 
-    def dense_stack(src: str, dst: str, required: bool) -> None:
-        pat = re.compile(re.escape(src) + r"/dense_(\d+)/kernel")
-        layers = [int(m.group(1)) for m in map(pat.fullmatch, flat) if m]
-        if required and not layers:
-            raise KeyError(f"missing JAX parameters under {src}/")
-        for i in _contiguous(layers, src):
-            put(f"{dst}._sequential.{i}._sequential.0.weight", take(f"{src}/dense_{i}/kernel").T)
-            put(f"{dst}._sequential.{i}._sequential.0.bias", take(f"{src}/dense_{i}/bias"))
-
-    dense_stack("merge/mlp", "_merge_layers.0._embedding._conv", required=True)
-    dense_stack("output/conv", "_merge_layers.1.conv", required=True)
-    dense_stack("output/linear", "_merge_layers.1.linear", required=False)
-    put("_merge_layers.1.output.weight", take("output/output/kernel").T)
-    put("_merge_layers.1.output.bias", take("output/output/bias"))
+    tree.mlp("merge/mlp", "_merge_layers.0._embedding._conv", required=True)
+    tree.mlp("output/conv", "_merge_layers.1.conv", required=True)
+    tree.mlp("output/linear", "_merge_layers.1.linear", required=False)
+    tree.put("_merge_layers.1.output.weight", tree.take("output/output/kernel").T)
+    tree.put("_merge_layers.1.output.bias", tree.take("output/output/bias"))
 
     # learned weights of a TransformUncertaintyLoss, alone or inside an AccumulatedLoss
     loss_re = re.compile(r"loss_module/(?:losses_(\d+)/)?(sx|sq)")
@@ -101,9 +137,13 @@ def load_jax_params(params: Mapping) -> Dict[str, torch.Tensor]:
         m = loss_re.fullmatch(key)
         if m:
             where = "_loss_layer." if m.group(1) is None else f"_loss_layer.losses.{m.group(1)}."
-            put(f"{where}_{m.group(2)}", take(key))
+            tree.put(f"{where}_{m.group(2)}", tree.take(key))
+    return tree.finish()
 
-    unused = sorted(set(flat) - used)
-    if unused:
-        raise ValueError(f"JAX parameters not used by the weight bridge: {unused}")
-    return state
+
+def load_jax_feature_propagation_params(variables: Mapping) -> Dict[str, torch.Tensor]:
+    """A JAX ``FeaturePropagation``'s variables -> state dict for the port's
+    ``FeaturePropagation.load_state_dict``; the same strict checks."""
+    tree = _Tree(variables)
+    tree.mlp("mlp", "mlp", required=True)
+    return tree.finish()

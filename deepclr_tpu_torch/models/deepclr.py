@@ -19,6 +19,7 @@ from torch import nn
 from .. import ops
 from ..geometry import LabelType, se3
 from ..losses import rot_loss, trans_loss
+from ..ops.pairwise import _sqnorm
 from .layers import MLP, Dense
 from .pointnet2 import SetAbstractionMSG
 
@@ -29,24 +30,28 @@ __all__ = ["SetAbstraction", "MotionEmbedding", "OutputSimple", "TransformLoss",
 class SetAbstraction(nn.Module):
     """1-2 stacked MSG set-abstraction stages.  Config lists are indexed by
     stage, e.g. npoint=[1024], radii=[[0.5, 1.0]], nsamples=[[512, 1024]],
-    mlps=[[[16, 16, 32], [16, 16, 32]]].  ``nsamples`` caps the ball only on
-    the exact (index-based) path, which this package does not have.
-    ``presorted``: the input is Morton-ordered by the host, so stage 0 skips
-    its point sort (later stages take FPS centres, never host-ordered)."""
+    mlps=[[[16, 16, 32], [16, 16, 32]]].  ``fused``: the fused kernels (the
+    full ball), else the exact path (``nsamples`` caps the ball; see
+    ``pointnet2``).  ``presorted``: the input is Morton-ordered by the host,
+    so stage 0 skips its point sort (later stages take FPS centres, never
+    host-ordered).  Batch norm raises on both paths, as in the JAX package."""
 
     def __init__(self, input_dim: int, npoint: Sequence[int], radii, nsamples, mlps,
-                 batch_norm: bool = False, compute_dtype=torch.float32, presorted: bool = False):
+                 batch_norm: bool = False, compute_dtype=torch.float32, presorted: bool = False,
+                 fused: bool = True):
         super().__init__()
         if not len(npoint) == len(radii) == len(nsamples) == len(mlps) or not 0 < len(npoint) <= 2:
             raise ValueError("SetAbstraction: 1-2 stages with one entry per stage in every list")
         if batch_norm:
-            raise NotImplementedError("batch_norm in SetAbstraction is not supported by the fused path")
+            raise NotImplementedError("batch_norm in SetAbstraction is not supported (nor by the JAX package)")
         self.num_stages = len(npoint)
         self.presorted = bool(presorted)
+        self.fused = bool(fused)
         in_dim = input_dim
         for stage in range(self.num_stages):
             sa = SetAbstractionMSG(in_dim, npoint[stage], radii[stage], mlps[stage],
-                                   compute_dtype=compute_dtype, presorted=self.presorted and stage == 0)
+                                   compute_dtype=compute_dtype, presorted=self.presorted and stage == 0,
+                                   nsamples=nsamples[stage], fused=self.fused)
             self.add_module(f"_sa{stage}", sa)
             in_dim = 3 + sa.out_dim
 
@@ -66,56 +71,94 @@ class SetAbstraction(nn.Module):
 
 
 class _Embedding(nn.Module):
-    def __init__(self, in_dim: int, mlp: Sequence[int], compute_dtype):
+    def __init__(self, in_dim: int, mlp: Sequence[int], compute_dtype, batch_norm: bool):
         super().__init__()
-        self._conv = MLP(in_dim, mlp, compute_dtype)
+        self._conv = MLP(in_dim, mlp, compute_dtype, batch_norm=batch_norm)
+
+
+_GATHERS = ("auto", "take", "onehot")
 
 
 class MotionEmbedding(nn.Module):
     """Cross-cloud motion embedding.  For each template point: its k nearest
-    source points, per-pair features [Δpos | f_template | f_source] through
-    a shared MLP, neighbours at or beyond ``radius`` zeroed (radius > 0),
-    max over neighbours.  Output: template xyz ‖ feature.
+    source points (k = 0: every source point), per-pair features
+    [Δpos | f_template | f_source] (``append_features``; else
+    [Δpos | f_source − f_template]) through a shared MLP, pairs at or
+    beyond ``radius`` zeroed (radius > 0), max over the neighbours.  Output:
+    template xyz ‖ feature.
 
-    Layer 1 is affine in [Δpos | f0 | f1], so it splits into a per-source
-    term A_j = x_j·Wd + f1_j·Wf + b and a per-template term
-    B_p = f0_p·W0 − c_p·Wd; the neighbour gather moves after the first
-    matmul.  Layer 1 runs in float32 (the split subtracts large absolute
-    coordinates, which bf16 cannot cancel); the tail runs in compute_dtype
-    with results in compute_dtype.  The radius mask reuses the kNN d².
-    """
+    Without batch norm, layer 1 is affine in the pair features, so it splits
+    into a per-source term A_j = x_j·Wd + f1_j·Wf + b and a per-template
+    term B_p = f0_p·W0 − c_p·Wd, and the neighbour gather moves after the
+    first matmul.  Layer 1 runs in float32 (the split subtracts large
+    absolute coordinates, which bf16 cannot cancel); the tail runs in
+    compute_dtype with results in compute_dtype.  The k-NN radius mask
+    reuses the kNN d²; for k = 0 it is ‖Δpos‖ ≥ radius, as in the JAX
+    package.  ``gather`` picks how the A rows are gathered: "take" (an
+    index gather; "auto" is "take" off a TPU) or "onehot" (the JAX
+    package's TPU form: one-hot bf16 products with the rows split into
+    hi + lo bf16 halves).  With batch norm the pair features are built
+    literally and go through the MLP (Dense -> BatchNorm -> ReLU)."""
 
     def __init__(self, feat_dim: int, mlp: Sequence[int], k: int = 20, radius: float = 10.0,
-                 point_dim: int = 3, batch_norm: bool = False, compute_dtype=torch.float32):
+                 point_dim: int = 3, append_features: bool = True, batch_norm: bool = False,
+                 compute_dtype=torch.float32, gather: str = "auto"):
         super().__init__()
-        if batch_norm:
-            raise NotImplementedError("the batch-norm MotionEmbedding path is not ported")
-        if k < 1:
-            raise NotImplementedError("MotionEmbedding with k=0 (all source points) is not ported")
+        if k < 0:
+            raise ValueError(f"k must be >= 0, got {k}")
+        if gather not in _GATHERS:
+            raise ValueError(f"Unknown gather mode: {gather!r}")
         self.k = int(k)
         self.radius = float(radius)
         self.point_dim = point_dim
-        self._embedding = _Embedding(point_dim + 2 * feat_dim, mlp, compute_dtype)
+        self.append_features = bool(append_features)
+        self.batch_norm = bool(batch_norm)
+        self.gather = gather
+        in_dim = point_dim + (2 * feat_dim if self.append_features else feat_dim)
+        self._embedding = _Embedding(in_dim, mlp, compute_dtype, self.batch_norm)
         self.compute_dtype = compute_dtype
 
     @property
     def mlp(self) -> MLP:
         return self._embedding._conv
 
+    def _gather_rows(self, a: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+        """(B, N, H1) rows, (B, P, k) indices -> (B, P, k, H1) float32."""
+        if self.gather != "onehot":
+            return ops.group_points(a, idx)
+        b, nsrc, h1 = a.shape
+        _, p, k = idx.shape
+        onehot = (idx.reshape(b, p * k, 1) == torch.arange(nsrc, device=a.device)).to(torch.bfloat16)
+        a_hi = a.to(torch.bfloat16)
+        a_lo = (a - a_hi.float()).to(torch.bfloat16)
+        # each product selects one bf16 row, so it is exact in bf16
+        rows = torch.matmul(onehot, a_hi).float() + torch.matmul(onehot, a_lo).float()
+        return rows.reshape(b, p, k, h1)
+
     def forward(self, feats0: torch.Tensor, feats1: torch.Tensor) -> torch.Tensor:
         """feats0 (template), feats1 (source): (B, P, 3+C) -> (B, P, 3+F)."""
+        if self.batch_norm:
+            return self._naive(feats0, feats1)
         pd = self.point_dim
         xyz0, f0 = feats0[..., :pd], feats0[..., pd:]
         xyz1, f1 = feats1[..., :pd], feats1[..., pd:]
-        idx, nbr_d2 = ops.knn(xyz0.detach(), xyz1.detach(), self.k)
 
         dense0 = self.mlp.dense(0)
         w1 = dense0.weight.t()  # (in, out), float32
-        wd, w0, wf = w1[:pd], w1[pd:pd + f0.shape[-1]], w1[pd + f0.shape[-1]:]
+        wd = w1[:pd]
+        if self.append_features:
+            w0, wf = w1[pd:pd + f0.shape[-1]], w1[pd + f0.shape[-1]:]
+        else:
+            w0, wf = -w1[pd:], w1[pd:]
         a = torch.matmul(xyz1, wd) + torch.matmul(f1, wf) + dense0.bias
         bp = torch.matmul(f0, w0) - torch.matmul(xyz0, wd)
-        h = torch.relu(ops.group_points(a, idx) + bp[:, :, None, :])  # (B, P, k, H1)
-        beyond = (nbr_d2 >= self.radius * self.radius)[..., None]
+        if self.k == 0:
+            h = torch.relu(a[:, None, :, :] + bp[:, :, None, :])  # (B, P, P1, H1)
+            beyond = _norm(xyz1[:, None, :, :] - xyz0[:, :, None, :]) >= self.radius
+        else:
+            idx, nbr_d2 = ops.knn(xyz0.detach(), xyz1.detach(), self.k)
+            h = torch.relu(self._gather_rows(a, idx) + bp[:, :, None, :])  # (B, P, k, H1)
+            beyond = (nbr_d2 >= self.radius * self.radius)[..., None]
 
         cd = self.compute_dtype
         h = h.to(cd)
@@ -125,6 +168,32 @@ class MotionEmbedding(nn.Module):
             h = torch.where(beyond, torch.zeros_like(h), h)
         feat = torch.amax(h, dim=-2).float()
         return torch.cat([xyz0, feat], dim=-1)
+
+    def _naive(self, feats0: torch.Tensor, feats1: torch.Tensor) -> torch.Tensor:
+        """The literal pair features through the MLP (the batch-norm path)."""
+        pd = self.point_dim
+        xyz0, f0 = feats0[..., :pd], feats0[..., pd:]
+        if self.k == 0:
+            grouped1 = feats1[:, None, :, :].expand(-1, feats0.shape[1], -1, -1)
+        else:
+            idx, _ = ops.knn(xyz0.detach(), feats1[..., :pd].detach(), self.k)
+            grouped1 = ops.group_points(feats1, idx)  # (B, P, k, 3+C)
+        pos_diff = grouped1[..., :pd] - xyz0[:, :, None, :]
+        if self.append_features:
+            f0_b = f0[:, :, None, :].expand(*pos_diff.shape[:3], -1)
+            merged = torch.cat([pos_diff, f0_b, grouped1[..., pd:]], dim=-1)
+        else:
+            merged = torch.cat([pos_diff, grouped1[..., pd:] - f0[:, :, None, :]], dim=-1)
+        h = self.mlp(merged)
+        if self.radius > 0.0:
+            h = torch.where(_norm(pos_diff.detach()) >= self.radius, torch.zeros_like(h), h)
+        feat = torch.amax(h, dim=-2).float()
+        return torch.cat([xyz0, feat], dim=-1)
+
+
+def _norm(v: torch.Tensor) -> torch.Tensor:
+    """Euclidean norm over the last axis, keeping it; summed left to right."""
+    return torch.sqrt(_sqnorm(v))[..., None]
 
 
 class OutputSimple(nn.Module):
@@ -137,6 +206,8 @@ class OutputSimple(nn.Module):
     ``dropout_last=True``): in training mode, inverted dropout after the
     ReLU of every ``linear`` layer, the last one included; an element is
     kept with probability ``dropout_keep`` and scaled by 1/``dropout_keep``.
+    With ``batch_norm`` every layer of ``conv`` and ``linear`` is Dense ->
+    BatchNorm -> ReLU (then dropout).
     The masks come from the head's own ``torch.Generator`` on its device,
     never from the global generator.  ``seed_dropout(step)`` seeds it from
     (``dropout_seed``, step), as the reference folds the step into its key,
@@ -148,14 +219,12 @@ class OutputSimple(nn.Module):
                  label_type: LabelType, batch_norm: bool = False, dropout_keep: float = 1.0,
                  compute_dtype=torch.float32, dropout_seed: int = 0):
         super().__init__()
-        if batch_norm:
-            raise NotImplementedError("batch_norm in OutputSimple is not ported")
         self.label_type = label_type
         self.dropout_keep = float(dropout_keep)
         self.dropout_seed = int(dropout_seed)
         self._dropout_gen: Optional[torch.Generator] = None
-        self.conv = MLP(in_dim, mlp, compute_dtype)
-        self.linear = MLP(linear[0], linear[1:], compute_dtype)
+        self.conv = MLP(in_dim, mlp, compute_dtype, batch_norm=batch_norm)
+        self.linear = MLP(linear[0], linear[1:], compute_dtype, batch_norm=batch_norm)
         self.output = Dense(linear[-1], label_type.dim, bias_value=label_type.bias)
 
     def seed_dropout(self, step: int) -> None:
@@ -240,8 +309,8 @@ class DeepCLR(nn.Module):
     * ``register``: motion embedding + pose head on two encoded clouds;
     * ``encode_register``: one sequential step, encode a new frame and
       register it against the cached previous features;
-    * ``forward``: encode template and source as one stacked 2B batch and
-      register; returns ``(y_pred, loss)``, the loss from ``loss_module``
+    * ``forward``: encode template and source (as one stacked 2B batch when
+      they are padded alike) and register; returns ``(y_pred, loss)``, the loss from ``loss_module``
       when the model has one and labels ``y`` are given, else None.
     """
 
@@ -301,14 +370,15 @@ class DeepCLR(nn.Module):
                 aug_template: Optional[torch.Tensor] = None,
                 aug_source: Optional[torch.Tensor] = None,
                 y: Optional[torch.Tensor] = None):
-        """Pairwise registration of equally padded clouds -> (y_pred (B, dim),
-        loss or None)."""
-        if template.shape != source.shape:
-            raise ValueError(f"template {tuple(template.shape)} and source {tuple(source.shape)} "
-                             "must be padded to one shape")
-        # one stacked 2B encode: every encode op is per cloud, so this halves
-        # the kernel launches and changes no value
+        """Pairwise registration -> (y_pred (B, dim), loss or None).  Clouds
+        padded to one shape are encoded as one stacked 2B batch (every encode
+        op is per cloud, so this halves the kernel launches and changes no
+        value); clouds padded differently are encoded one after the other."""
         b = template.shape[0]
+        if template.shape != source.shape:
+            feats0 = self.encode(template, template_mask, aug_template)
+            feats1 = self.encode(source, source_mask, aug_source)
+            return self._finish(self.register(feats0, feats1), y)
         both = torch.cat([template, source], dim=0)
         mask = None
         if template_mask is not None or source_mask is not None:
@@ -321,7 +391,9 @@ class DeepCLR(nn.Module):
             aug = torch.cat([eye if aug_template is None else aug_template,
                              eye if aug_source is None else aug_source], dim=0)
         feats = self.encode(both, mask, aug)
-        y_pred = self.register(feats[:b], feats[b:])
+        return self._finish(self.register(feats[:b], feats[b:]), y)
+
+    def _finish(self, y_pred: torch.Tensor, y: Optional[torch.Tensor]):
         loss = None
         if self.loss_module is not None and y is not None:
             loss = self.loss_module(y_pred, y)

@@ -4,11 +4,13 @@ Parameters are float32; products run in the module's compute dtype.  A
 Dense layer rounds where a Flax ``Dense(dtype=compute_dtype)`` rounds: the
 inputs and the kernel are cast to the compute dtype, the product comes out
 in it (float32 accumulation inside the matmul), and the bias add rounds
-again.  ReLU follows every layer, the last one included.
+again.  ReLU follows every layer, the last one included; with batch norm
+a layer is Dense -> BatchNorm -> ReLU.
 
 Module names follow the reference PyTorch DeepCLR state dict
 (``deepclr_tpu/models/torch_convert.py``): an MLP's layer ``i`` holds its
-Dense at ``_sequential.{i}._sequential.0``.
+Dense at ``_sequential.{i}._sequential.0`` and its batch norm at
+``_sequential.{i}._sequential.1``.
 """
 from __future__ import annotations
 
@@ -18,7 +20,7 @@ from typing import Callable, Optional, Sequence
 import torch
 from torch import nn
 
-__all__ = ["Dense", "MLP"]
+__all__ = ["BatchNorm", "Dense", "MLP"]
 
 
 class Dense(nn.Module):
@@ -57,22 +59,66 @@ class Dense(nn.Module):
         return y + self.bias.to(compute_dtype)
 
 
-class _Layer(nn.Module):
-    def __init__(self, in_features: int, out_features: int):
+class BatchNorm(nn.Module):
+    """Batch norm over every axis but the last, as ``flax.linen.BatchNorm``
+    computes it (not ``torch.nn.BatchNorm1d``): in training mode the batch's
+    mean and *biased* variance, E[x²] − E[x]² clipped at 0, in float32, and
+    the running statistics updated as ra = 0.99·ra + 0.01·batch (Flax's
+    ``momentum`` is the kept share); in evaluation mode the running
+    statistics.  y = (x − mean)·rsqrt(var + 1e-5)·weight + bias in float32,
+    returned in the compute dtype.  Parameters ``weight`` / ``bias`` and
+    buffers ``running_mean`` / ``running_var``, the reference's names."""
+
+    def __init__(self, features: int, momentum: float = 0.99, epsilon: float = 1e-5):
         super().__init__()
-        self._sequential = nn.ModuleList([Dense(in_features, out_features)])
+        self.momentum, self.epsilon = momentum, epsilon
+        self.weight = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+        self.register_buffer("running_mean", torch.zeros(features))
+        self.register_buffer("running_var", torch.ones(features))
+
+    def reset_parameters(self) -> None:
+        with torch.no_grad():
+            self.weight.fill_(1.0)
+            self.bias.zero_()
+            self.running_mean.zero_()
+            self.running_var.fill_(1.0)
+
+    def forward(self, x: torch.Tensor, compute_dtype=torch.float32) -> torch.Tensor:
+        xf = x.float()
+        if self.training:
+            axes = tuple(range(x.dim() - 1))
+            mean = xf.mean(axes)
+            var = torch.clamp_min((xf * xf).mean(axes) - mean * mean, 0.0)
+            with torch.no_grad():
+                self.running_mean.copy_(self.momentum * self.running_mean + (1.0 - self.momentum) * mean)
+                self.running_var.copy_(self.momentum * self.running_var + (1.0 - self.momentum) * var)
+        else:
+            mean, var = self.running_mean, self.running_var
+        y = (xf - mean) * (torch.rsqrt(var + self.epsilon) * self.weight) + self.bias
+        return y.to(compute_dtype)
+
+
+class _Layer(nn.Module):
+    def __init__(self, in_features: int, out_features: int, batch_norm: bool):
+        super().__init__()
+        self._sequential = nn.ModuleList([Dense(in_features, out_features)]
+                                         + ([BatchNorm(out_features)] if batch_norm else []))
 
 
 class MLP(nn.Module):
-    """Stack of Dense + ReLU layers: (..., in_dim) -> (..., widths[-1]) in
-    ``compute_dtype``.  ``forward``'s ``post``, when given, follows every
-    layer's ReLU: the pose head's dropout (``OutputSimple``)."""
+    """Stack of Dense (+ BatchNorm) + ReLU layers: (..., in_dim) ->
+    (..., widths[-1]) in ``compute_dtype``.  ``forward``'s ``post``, when
+    given, follows every layer's ReLU: the pose head's dropout
+    (``OutputSimple``)."""
 
-    def __init__(self, in_dim: int, widths: Sequence[int], compute_dtype=torch.float32):
+    def __init__(self, in_dim: int, widths: Sequence[int], compute_dtype=torch.float32,
+                 batch_norm: bool = False):
         super().__init__()
         dims = [in_dim, *widths]
-        self._sequential = nn.ModuleList([_Layer(dims[i], dims[i + 1]) for i in range(len(widths))])
+        self._sequential = nn.ModuleList([_Layer(dims[i], dims[i + 1], batch_norm) for i in range(len(widths))])
         self.compute_dtype = compute_dtype
+        self.batch_norm = bool(batch_norm)
 
     def dense(self, i: int) -> Dense:
         return self._sequential[i]._sequential[0]
@@ -82,9 +128,13 @@ class MLP(nn.Module):
 
     def forward(self, x: torch.Tensor,
                 post: Optional[Callable[[torch.Tensor], torch.Tensor]] = None) -> torch.Tensor:
-        x = x.to(self.compute_dtype)
+        cd = self.compute_dtype
+        x = x.to(cd)
         for i in range(len(self)):
-            x = torch.relu(self.dense(i)(x, self.compute_dtype))
+            x = self.dense(i)(x, cd)
+            if self.batch_norm:
+                x = self._sequential[i]._sequential[1](x, cd)
+            x = torch.relu(x)
             if post is not None:
                 x = post(x)
         return x

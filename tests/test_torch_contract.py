@@ -35,6 +35,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert {"deepclr_tpu_torch.data.transforms", "deepclr_tpu_torch.data.batching", "deepclr_tpu_torch.data.loader",
             "deepclr_tpu_torch.data.synthetic", "deepclr_tpu_torch.training",
             "deepclr_tpu_torch.timing"} <= set(modules)
+    assert {"deepclr_tpu_torch.ops.ball_grouping", "deepclr_tpu_torch.ops.interpolate",
+            "deepclr_tpu_torch.models.feature_propagation", "deepclr_tpu_torch.models.flax_msgpack",
+            "deepclr_tpu_torch.models.torch_convert", "deepclr_tpu_torch.convert_weights"} <= set(modules)
     assert {"deepclr_tpu_torch.icp.icp", "deepclr_tpu_torch.icp.cli", "deepclr_tpu_torch.icp.__main__",
             "deepclr_tpu_torch.native", "deepclr_tpu_torch.native.pack_reader", "deepclr_tpu_torch.native.morton_sort",
             "deepclr_tpu_torch.kitti_devkit.__main__", "deepclr_tpu_torch.kitti_devkit.plots",
@@ -43,7 +46,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "import importlib, json, sys\n"
         f"for m in {modules!r}: importlib.import_module(m)\n"
         "print(json.dumps(sorted(k for k in sys.modules if k.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'optax', 'deepclr_tpu'))))\n"
+        "('jax', 'jaxlib', 'flax', 'optax', 'msgpack', 'deepclr_tpu'))))\n"
     )
     env = dict(os.environ, PYTHONPATH=str(REPO))
     out = subprocess.run([sys.executable, "-c", code], env=env, cwd=REPO, capture_output=True,
@@ -139,18 +142,38 @@ def test_init_params_is_seeded():
     assert a["_merge_layers.1.output.bias"].tolist() == [1.0, 0, 0, 0, 0, 0, 0, 0]
 
 
-@pytest.mark.parametrize("change", [
-    ("params", "fused", False),
-    ("params", "batch_norm", True),
-    ("merge", "k", 0),
-])
-def test_build_rejects_configs_outside_the_slice(change):
+def _changed_cfg(change):
     cfg = _small_cfg()
     where, key, value = change
     section = cfg["params"] if where == "params" else cfg["params"][where]["params"]
     section[key] = value
+    return cfg
+
+
+@pytest.mark.parametrize("change", [
+    # batch norm in set abstraction raises in the JAX package too (at init)
+    ("params", "batch_norm", True),
+    ("params", "output", {"name": "OutputFC", "params": {}}),
+    ("params", "loss", {"name": "ChamferLoss"}),
+])
+def test_build_rejects_configs_outside_the_slice(change):
     with pytest.raises(NotImplementedError):
-        build_model(cfg, device="cpu")
+        build_model(_changed_cfg(change), device="cpu")
+
+
+@pytest.mark.parametrize("change", [
+    ("params", "fused", False),
+    ("merge", "k", 0),
+    ("merge", "append_features", False),
+])
+def test_model_variants_build_and_predict(change):
+    """The exact set abstraction, k=0 and append_features=False build and
+    serve (tests/test_torch_model_variants.py holds them against JAX)."""
+    model = build_model(_changed_cfg(change), device="cpu")
+    rng = np.random.default_rng(0)
+    clouds = [rng.normal(size=(200, 4)).astype(np.float32) for _ in range(2)]
+    y = ModelInferenceHelper(model, num_points=256).predict_batch(clouds[:1], clouds[1:])
+    assert y.shape == (1, 8) and np.isfinite(y).all()
 
 
 def test_inference_entry_point_imports_without_yaml_or_matplotlib():

@@ -546,3 +546,64 @@ def test_icp_on_card_matches_cpu(dev, algorithm):
     np.testing.assert_allclose(out["cuda"][0], out["cpu"][0], atol=1e-4, rtol=0)
     assert abs(out["cuda"][1]["iterations"] - out["cpu"][1]["iterations"]) <= 1
     np.testing.assert_allclose(out["cuda"][0] @ gt, np.eye(4), atol=2e-2)
+
+
+def _ambiguous_balls(xyz, centres, radius, mask, margin=1e-3):
+    """(B, P) bool: balls with a valid point within ``margin`` m² of r², by
+    exact float64 distances, where the expanded float32 form may put it on
+    either side on another device."""
+    d2 = ((centres.double()[:, :, None] - xyz.double()[:, None]) ** 2).sum(-1)
+    return ((d2 - radius * radius).abs() < margin) & mask[:, None, :]
+
+
+@pytest.mark.parametrize("radius, nsample", [(0.5, 512), (1.0, 1024)])
+def test_ball_query_on_card_equals_cpu(dev, radius, nsample):
+    """KITTI-scale clouds (a masked tail, an all-masked cloud) and FPS
+    centres: the card's indices equal the CPU's on every ball without a
+    point within 1e-3 m² of the sphere; and on a dense cube (10 x 4096
+    points in 4 m, ~190 a 1 m ball) at nsample 64, where truncation bites."""
+    xyz, mask = _cloud(4, 16384, seed=60), _mask(4, 16384)
+    centres = ops.gather_points(xyz, fps._fps_plain(xyz, 1024, mask))
+    dense = torch.from_numpy(np.random.default_rng(61).uniform(0.0, 4.0, size=(10, 4096, 3)).astype(np.float32))
+    for pts, m, c, ns in ((xyz, mask, centres, nsample), (dense, torch.ones(10, 4096, dtype=torch.bool),
+                                                        dense[:, :256], 64)):
+        got = ops.ball_query(pts.to(dev), c.to(dev), radius, ns, m.to(dev)).cpu()
+        ref = ops.ball_query(pts, c, radius, ns, m)
+        differ = (got != ref).any(-1)
+        ambiguous = _ambiguous_balls(pts.to(dev), c.to(dev), radius, m.to(dev)).any(-1).cpu()
+        assert not (differ & ~ambiguous).any(), int((differ & ~ambiguous).sum())
+
+
+def test_exact_model_on_card_matches_cpu(dev):
+    """The flagship with fused: False at 2 pairs x 4096 points, bf16: within
+    2e-2 of the CPU; FPS launches, the fused kernels do not."""
+    cfg = copy.deepcopy(KITTI_MODEL_CFG)
+    cfg["params"]["fused"] = False
+    card = build_model(cfg, device="cuda", seed=7)
+    cpu = build_model(cfg, device="cpu", seed=7)
+    rng = np.random.default_rng(9)
+    clouds = [np.concatenate([rng.normal(size=(5000, 3)) * [30, 30, 2], rng.uniform(size=(5000, 1))], 1)
+              .astype(np.float32) for _ in range(4)]
+    ops.reset_launch_counts()
+    y_card = ModelInferenceHelper(card, num_points=4096).predict_batch(clouds[:2], clouds[2:])
+    assert ops.launch_counts() == {"fps": 1, "min_d2": 0, "fused_sa": 0, "fused_sa_argmax": 0, "fused_sa_bwd": 0}
+    y_cpu = ModelInferenceHelper(cpu, num_points=4096).predict_batch(clouds[:2], clouds[2:])
+    np.testing.assert_allclose(y_card, y_cpu, atol=2e-2, rtol=0)
+
+
+def test_batch_norm_motion_embedding_running_stats_on_card_match_cpu(dev):
+    """A training forward of a batch-norm MotionEmbedding (float32): output
+    and running statistics on the card within 1e-5 of the CPU's."""
+    from deepclr_tpu_torch.models import MotionEmbedding, init_params
+
+    rng = np.random.default_rng(12)
+    f0, f1 = (torch.from_numpy(np.concatenate([rng.normal(size=(2, 256, 3)) * 5, rng.normal(size=(2, 256, 64))],
+                                              -1).astype(np.float32)) for _ in range(2))
+    out, stats = {}, {}
+    for device in ("cpu", "cuda"):
+        me = init_params(MotionEmbedding(64, [128, 128, 256], k=20, batch_norm=True), 3).to(device).train()
+        out[device] = me(f0.to(device), f1.to(device)).detach().cpu()
+        stats[device] = {k: v.cpu() for k, v in me.state_dict().items() if "running" in k}
+    torch.testing.assert_close(out["cuda"], out["cpu"], atol=1e-5 * max(1.0, out["cpu"].abs().max().item()), rtol=0)
+    for k, v in stats["cpu"].items():
+        torch.testing.assert_close(stats["cuda"][k], v, atol=1e-5 * max(1.0, v.abs().max().item()), rtol=0)
