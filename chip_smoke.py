@@ -163,7 +163,50 @@ Phases, in order; any failure raises and exits non-zero:
    medians after a warm-up): the exact forward's pairs/s at 16 x 16384
    beside phase 6's fused figure, the ball query at each scale and both
    from one distance pass, the grouped MLP, the exact train micro-step at
-   5 x 16384, peak allocated memory, the ball query's block size.
+   5 x 16384, peak allocated memory, the ball query's block size;
+11. data-parallel training (in a temporary directory): a training and a
+   validation KITTI sequence of ray-cast HDL-64 scans, each scan subsampled
+   once to 16384 points as it is written (41 and 11 frames: 4 micro-steps
+   of 2 x 5 pairs, and one validation batch of 10), and YAMLs that extend
+   the shipped configs/training/kitti_base.yaml (5 pairs of 16384 points a
+   rank, accumulation 2, no augmentation) with float32, 4 micro-steps, a
+   constant lr of 1e-5 in place of the schedule (which starts at 1e-7, too
+   small for two updates to show an error in the gradients; see dp_yaml
+   for why not more) and no loader workers.  Weights are compared on one
+   scale for the whole model (weights_rel_err: the largest difference of
+   any weight over the largest weight; the tensor that differs most on its
+   own scale is printed beside it).  (a) train(cfg) in a one-rank NCCL
+   process group (DistributedDataParallel, the kernels) against train(cfg)
+   without one: the train/loss_fn trajectory and the final weights within
+   1e-6 (B4 sums with atomics, so the weights may differ in the last
+   bits), the train step run by the DistributedDataParallel wrapper, and
+   B1-B4 launched in that run, each micro-step exactly as often as without
+   a group (the counts are zeroed just before the run).  (b) Two gloo
+   ranks on the one card (python -m deepclr_tpu_torch.training's main()
+   in two processes, started with the DEEPCLR_COORDINATOR contract, each
+   joining the group over gloo itself and stopped within 600 s) against
+   one process of batch 10: train/loss_fn within rtol 5e-3 / atol 1e-5
+   (the bound of tests/parallel/test_distributed_2proc.py), every val/
+   scalar of rank 0 within 1e-5 of its scale, rank 0's final weights
+   within 1e-5 (ranks that kept their own gradients fail here and in
+   validation; the update's own error is printed beside it), one
+   run directory with files (rank 1 writes nothing), B1-B4 launched on
+   both ranks.  Timing (CUDA events around
+   each train step, 12 micro-steps a run, medians after the first update,
+   local and all-reducing micro-steps apart): no group and the one-rank
+   group in turns (no group, group, group, no group), then each gloo
+   rank; the final weights of the two runs without a group against each
+   other (the run-to-run spread, printed, not gated); the gradient bytes
+   all-reduced an update and the launches a
+   data-parallel micro-step.  ``python3 chip_smoke.py --dp-rank YAML
+   OUT_DIR`` is one such rank.
+
+``python3 chip_smoke.py --dp-cards`` (a host with two or more cards, not
+part of the run above) runs phase 11's comparison across every card:
+torchrun with DEEPCLR_DISTRIBUTED=1, NCCL, 5 pairs a rank, against one
+process of the global batch on card 0 (the same gates as (b), weights
+included), then each
+rank's micro-step beside one card's without a group.
 
 Prints JSON lines; the one before the last two lists the kernels, then the
 card's name and power limit, and the last is {"ok": true, "device": {...}}.
@@ -228,6 +271,16 @@ ICP_CUT_POINTS = 4096         # card against CPU on this cut of every pair
 # two devices' last-bit differences move to a neighbour d away shifts it by
 # d / 4096 (2.4e-4 at the 1 m gate), so it is held to four such flips
 ICP_TOL = {"icp_po2po": 1e-3, "icp_po2pl": 1e-4, "gicp": 1e-4}
+KITTI_BASE_YAML = "configs/training/kitti_base.yaml"
+DP_RANKS = 2                  # phase 11: two gloo ranks sharing the one card
+DP_MICRO_STEPS = 4            # each comparison run: 2 updates of accumulation 2
+DP_TIMING_STEPS = 12          # each timing run: the first update is the warm-up
+DP_ONE_RANK_TOL = 1e-6        # a one-rank group against no group (relative: losses, weights as in weights_rel_err)
+DP_LOSS_RTOL, DP_LOSS_ATOL = 5e-3, 1e-5  # the bound of tests/parallel/test_distributed_2proc.py
+DP_VAL_TOL = 1e-5             # validation scalars, two ranks against one process (relative)
+DP_WEIGHT_TOL = 1e-5          # final weights, the ranks' against one process's (as in weights_rel_err)
+DP_LR = 1e-5                  # comparison runs: a constant lr (see dp_yaml)
+DP_RANK_TIMEOUT_S = 600
 
 
 def emit(obj):
@@ -1180,10 +1233,13 @@ class TimedLoader:
 class TrainerProbe:
     """Patches the trainer's factories for one train(cfg): its loaders
     become TimedLoaders, and each train and eval step is timed with CUDA
-    events (device work and the host work the device waited for)."""
+    events (device work and the host work the device waited for).  Also
+    kept: each train step's kernel launches, and the model the train step
+    was made for (the DistributedDataParallel wrapper under a process
+    group)."""
 
     def __init__(self):
-        self.loaders, self.step_ms, self.eval_ms = {}, [], []
+        self.loaders, self.step_ms, self.eval_ms, self.step_launches, self.stepped = {}, [], [], [], []
 
     def __enter__(self):
         from deepclr_tpu_torch.engine import trainer
@@ -1198,23 +1254,30 @@ class TrainerProbe:
             self.loaders["train" if is_train else "val"] = timed = TimedLoader(loader)
             return timed
 
-        def timed(make, sink):
+        def timed(make, sink, launches=None):
+            from deepclr_tpu_torch import ops
+
             def factory(*args, **kw):
+                if launches is not None:
+                    self.stepped.append(args[0])
                 fn = make(*args, **kw)
 
                 def call(*a, **k):
+                    before = ops.launch_counts()
                     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
                     start.record()
                     out = fn(*a, **k)
                     end.record()
                     end.synchronize()
                     sink.append(start.elapsed_time(end))
+                    if launches is not None:
+                        launches.append({n: c - before.get(n, 0) for n, c in ops.launch_counts().items()})
                     return out
                 return call
             return factory
 
         trainer.make_data_loader = make_data_loader
-        trainer.make_train_step = timed(self._saved["make_train_step"], self.step_ms)
+        trainer.make_train_step = timed(self._saved["make_train_step"], self.step_ms, self.step_launches)
         trainer.make_eval_step = timed(self._saved["make_eval_step"], self.eval_ms)
         return self
 
@@ -2118,6 +2181,366 @@ def run_variants_phase(model, dev, card, fused_pairs_per_s, raycast):
     return metrics
 
 
+def write_dp_packs(tmp, ranks=DP_RANKS):
+    """Phase 11's packs for ``ranks`` ranks: a training and a validation
+    KITTI sequence of ray-cast HDL-64 scans, each scan subsampled once to
+    NPTS points as it is written, so the loader neither subsamples nor pads
+    (its draws would depend on how the samples are sharded).  Returns the
+    seconds taken."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from deepclr_tpu_torch.data import PackWriter
+    from deepclr_tpu_torch.data.synthetic import drive
+
+    # validation: one global batch, so every rank's shard holds one full batch of it
+    frames = {"train": ranks * TRAIN_BATCH * DP_MICRO_STEPS + 1, "val": ranks * TRAIN_BATCH + 1}
+
+    def sequence(k, name):
+        pick = np.random.default_rng(3000 + k)
+        with PackWriter(osp.join(tmp, f"{name}.pack")) as w:
+            for i, (pose, scan) in enumerate(drive(np.random.default_rng(2000 + k), frames[name], SCAN_POINTS)):
+                if len(scan) < NPTS:
+                    raise AssertionError(f"{name} frame {i}: {len(scan)} points")
+                keep = np.sort(pick.choice(len(scan), NPTS, replace=False))
+                w.put(f"{i:08d}", {"idx": i, "timestamp": i * 1e5, "pose": pose, "cloud": scan[keep]})
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(2) as pool:
+        for f in [pool.submit(sequence, k, name) for k, name in enumerate(frames)]:
+            f.result()
+    return time.perf_counter() - t0
+
+
+def dp_yaml(tmp, name, batch_size, micro_steps=DP_MICRO_STEPS):
+    """A YAML that extends the shipped kitti_base.yaml (no augmentation
+    transforms) with phase 11's packs, float32, ``micro_steps`` micro-steps,
+    a constant lr of DP_LR in place of the schedule (whose 1e-7 start would
+    leave two updates too small to show an error in the gradients; from
+    1e-4 up the loss climbs after the first update, and two runs without a
+    group no longer agree within the validation gate, because B4's float
+    atomics change which neighbour wins a max in the second backward), loader
+    workers off (their order is not fixed) and validation once, after the
+    final checkpoint."""
+    import yaml
+
+    path = osp.join(tmp, f"{name}.yaml")
+    with open(path, "w") as f:
+        yaml.safe_dump({"extends": osp.join(REPO, KITTI_BASE_YAML), "base_dir": osp.join(tmp, name), "identifier": name,
+                        "data": {"training": osp.join(tmp, "train.pack"), "validation": osp.join(tmp, "val.pack"),
+                                 "dataset_type": "kitti_odometry_velodyne", "sequential": True},
+                        "data_loader": {"batch_size": batch_size, "num_workers": 0, "buffer_size": 0},
+                        "model": {"params": {"compute_dtype": "float32"}},
+                        "optimizer": {"max_iterations": micro_steps, "base_lr": DP_LR},
+                        "scheduler": {"name": None, "params": {}, "on_iteration": False},
+                        "logging": {"summary_period": 1, "log_period": 1, "checkpoint_period": 10**6,
+                                    "validation_period": 10**6}}, f)
+    return path
+
+
+def read_run(base_dir, micro_steps):
+    """The one run directory under base_dir: its scalars ({tag: values in
+    step order}) and final weights; raises if any other directory holds a
+    file (only rank 0 writes)."""
+    runs = [d for d in sorted(os.listdir(base_dir)) if os.listdir(osp.join(base_dir, d))]
+    if len(runs) != 1:
+        raise AssertionError(f"{base_dir}: run directories with files {runs}, expected one")
+    run_dir = osp.join(base_dir, runs[0])
+    tags = {}
+    with open(osp.join(run_dir, "scalars.jsonl")) as f:
+        for line in f:
+            rec = json.loads(line)
+            tags.setdefault(rec["tag"], []).append((rec["step"], rec["value"]))
+    scalars = {t: [v for _, v in sorted(vals)] for t, vals in tags.items()}
+    weights = torch.load(osp.join(run_dir, f"weights_final_{micro_steps}.pt"), map_location="cpu",
+                         weights_only=True)
+    return scalars, weights
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def dp_train_in_process(path, nccl, micro_steps=DP_MICRO_STEPS):
+    """train(cfg) of one YAML in this process, with no process group or in a
+    one-rank NCCL group.  Returns the probe, the run's launches, scalars and
+    final weights."""
+    from deepclr_tpu_torch import ops, parallel
+    from deepclr_tpu_torch.config import Mode, load_config
+    from deepclr_tpu_torch.engine import trainer
+
+    cfg = load_config(path, Mode.NEW)
+    if nccl:
+        torch.distributed.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{free_port()}", world_size=1,
+                                             rank=0, timeout=parallel.distributed.TIMEOUT)
+    try:
+        ops.reset_launch_counts()
+        with TrainerProbe() as probe:
+            state = trainer.train(cfg)
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+    finally:
+        parallel.shutdown()
+    if state.step != micro_steps:
+        raise AssertionError(f"{path}: {state.step} micro-steps")
+    return probe, counts, *read_run(cfg.base_dir, micro_steps)
+
+
+def rel_err(a, b):
+    """max |a - b| / max |b| over one array; NaN where both are NaN (a
+    segment error of a drive shorter than 100 m) counts as equal, NaN on one
+    side only as infinite."""
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    if not np.array_equal(np.isnan(a), np.isnan(b)):
+        return float("inf")
+    a, b = a[~np.isnan(b)], b[~np.isnan(b)]
+    return float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-30)) if b.size else 0.0
+
+
+def weights_rel_err(a, b):
+    """Two state dicts of the same keys: the largest |a - b| of any weight
+    over the largest |b| of any weight, one scale for the whole model (a
+    bias that starts at zero has only its update's scale, and a neighbour
+    that wins a max in one run and not in another moves that update far
+    more than 1e-5 of it between two runs without a group); and, reported
+    beside it, the tensor that differs most relative to its own scale."""
+    keys = [k for k, v in b.items() if v.is_floating_point()]
+    diff = max(float((a[k].double() - b[k].double()).abs().max()) for k in keys)
+    scale = max(float(b[k].abs().max()) for k in keys)
+    own = {k: rel_err(a[k], b[k]) for k in keys}
+    worst = max(own, key=own.get)
+    return diff / max(scale, 1e-30), {"tensor": worst, "rel_err_own_scale": own[worst]}
+
+
+def micro_step_ms(step_ms):
+    """Medians over the micro-steps after the first update (the warm-up) of
+    accumulation 2: the local (no_sync) micro-steps, the all-reducing ones
+    (with the optimizer step), and their mean."""
+    local, synced = statistics.median(step_ms[2::2]), statistics.median(step_ms[3::2])
+    return {"mean": (local + synced) / 2, "local": local, "all_reduce": synced}
+
+
+def dp_rank_main(path, out_dir):
+    """One rank of phase 11 or of --dp-cards (``chip_smoke.py --dp-rank YAML
+    OUT_DIR``): python -m deepclr_tpu_torch.training's main() under a
+    TrainerProbe; writes the probe's numbers to OUT_DIR/rank<r>.json.  With
+    the DEEPCLR_COORDINATOR variables (phase 11's ranks, which share one
+    card) the rank joins the group over gloo itself, since NCCL refuses two
+    ranks on one card; under torchrun (--dp-cards) main() joins it from the
+    environment, over NCCL."""
+    from deepclr_tpu_torch import ops, parallel, training
+
+    rank = int(os.environ.get("DEEPCLR_PROCESS_ID", os.environ.get("RANK", "0")))
+    if "DEEPCLR_COORDINATOR" in os.environ:
+        parallel.initialize(os.environ["DEEPCLR_COORDINATOR"], int(os.environ["DEEPCLR_NUM_PROCESSES"]), rank,
+                            [int(os.environ["DEEPCLR_LOCAL_DEVICE_IDS"])], backend="gloo")
+    ops.reset_launch_counts()
+    with TrainerProbe() as probe:
+        training.main([path])
+    torch.cuda.synchronize()
+    ddp = probe.stepped[0]
+    with open(osp.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump({"rank": rank, "wrapper": type(ddp).__name__,
+                   "step_ms": probe.step_ms, "step_launches": probe.step_launches, "launches": ops.launch_counts(),
+                   "grad_bytes": sum(p.numel() * p.element_size() for p in ddp.parameters() if p.requires_grad)}, f)
+    return 0
+
+
+def initial_weights(path):
+    """The weights that train(cfg) of the YAML starts from, on the card."""
+    from deepclr_tpu_torch.config import Mode, load_config
+    from deepclr_tpu_torch.models import build_model
+
+    cfg = load_config(path, Mode.TEST)
+    return {k: v.cpu() for k, v in build_model(cfg.model, device="cuda", seed=cfg.seed).state_dict().items()}
+
+
+def check_ranks(tag, base_dir, ref_scalars, ref_weights, init, ranks):
+    """The ranks' run (rank 0's run directory under base_dir, the only one
+    with files) against one process of the global batch: train/loss_fn
+    within DP_LOSS_RTOL / DP_LOSS_ATOL, every val/ scalar within DP_VAL_TOL
+    of its scale, the final weights within DP_WEIGHT_TOL (weights_rel_err),
+    the train step run by DistributedDataParallel and B1-B4 launched
+    on every rank.  Also reported: each tensor's update (final - ``init``)
+    against the global run's, relative to that update's scale."""
+    scalars, weights = read_run(base_dir, DP_MICRO_STEPS)
+    loss, ref_loss = np.asarray(scalars["train/loss_fn"]), np.asarray(ref_scalars["train/loss_fn"])
+    val_tags = sorted(t for t in ref_scalars if t.startswith("val/"))
+    val_err = {t: rel_err(scalars[t], ref_scalars[t]) for t in val_tags if t in scalars}
+    if sorted(weights) != sorted(ref_weights):
+        raise AssertionError(f"{tag}: weight keys {sorted(set(weights) ^ set(ref_weights))} differ")
+    weight_err, weight_worst = weights_rel_err(weights, ref_weights)
+    update_err = {k: rel_err(weights[k] - init[k], v - init[k]) for k, v in ref_weights.items()
+                  if k in weights and v.is_floating_point()}
+    out = {"loss_fn": loss.tolist(), "loss_fn_global_batch": ref_loss.tolist(),
+           "loss_fn_max_abs_err": float(np.abs(loss - ref_loss).max()), "val_rel_err": val_err,
+           "weights_rel_err": weight_err, "weights_worst": weight_worst,
+           "update_rel_err": max(update_err.values()), "update_rel_err_median": statistics.median(update_err.values()),
+           "update_scale": max(float((v - init[k]).abs().max()) for k, v in ref_weights.items() if k in update_err),
+           "wrappers": [r["wrapper"] for r in ranks]}
+    if (loss.shape != ref_loss.shape or not np.allclose(loss, ref_loss, rtol=DP_LOSS_RTOL, atol=DP_LOSS_ATOL)
+            or "val/step_t_err" not in val_err or len(val_err) != len(val_tags)
+            or max(val_err.values()) > DP_VAL_TOL or weight_err > DP_WEIGHT_TOL
+            or any(r["wrapper"] != "DistributedDataParallel" for r in ranks)):
+        raise AssertionError(f"{tag} against one process of the global batch: {out}")
+    for r in ranks:
+        missing = [k for k in TRAIN_KERNELS if r["launches"].get(k, 0) < 1]
+        if missing:
+            raise AssertionError(f"{tag}, rank {r['rank']}: kernels {missing} never launched")
+    return out
+
+
+def run_gloo_ranks(path, tmp):
+    """DP_RANKS processes of dp_rank_main on the one card over gloo, with
+    the DEEPCLR_COORDINATOR contract; all killed if one fails or outlasts
+    DP_RANK_TIMEOUT_S."""
+    port = free_port()
+    procs = []
+    for r in range(DP_RANKS):
+        env = dict(os.environ, DEEPCLR_COORDINATOR=f"127.0.0.1:{port}", DEEPCLR_NUM_PROCESSES=str(DP_RANKS),
+                   DEEPCLR_PROCESS_ID=str(r), DEEPCLR_LOCAL_DEVICE_IDS="0")
+        procs.append(subprocess.Popen([sys.executable, osp.join(REPO, "chip_smoke.py"), "--dp-rank", path, tmp],
+                                      env=env, cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    return wait_ranks(procs, tmp, DP_RANKS)
+
+
+def wait_ranks(procs, out_dir, ranks):
+    """Wait for the rank processes (all killed if one fails or the wait
+    outlasts DP_RANK_TIMEOUT_S) and read their rank<r>.json."""
+    logs = []
+    try:
+        deadline = time.monotonic() + DP_RANK_TIMEOUT_S
+        for p in procs:
+            logs.append(p.communicate(timeout=max(1.0, deadline - time.monotonic()))[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    bad = {r: (p.returncode, logs[r][-3000:] if r < len(logs) else "") for r, p in enumerate(procs) if p.returncode}
+    if bad:
+        raise AssertionError(f"ranks failed: {bad}")
+    results = []
+    for r in range(ranks):
+        with open(osp.join(out_dir, f"rank{r}.json")) as f:
+            results.append(json.load(f))
+    return results
+
+
+def run_data_parallel_phase(card):
+    """Phase 11: data-parallel training from kitti_base.yaml at the
+    flagship's full width on ray-cast packs: (a) a one-rank NCCL group
+    (DistributedDataParallel, the kernels) against no group; (b) two gloo
+    ranks on the one card against one process of the global batch; the
+    micro-step times, gradient bytes and launches a micro-step."""
+    start = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        packs_s = write_dp_packs(tmp)
+        plain_probe, plain_counts, plain_scalars, plain_weights = dp_train_in_process(
+            dp_yaml(tmp, "plain", TRAIN_BATCH), nccl=False)
+        # (a) the main path of this phase: the counts are zeroed just before it
+        dp_probe, dp_counts, dp_scalars, dp_weights = dp_train_in_process(dp_yaml(tmp, "nccl1", TRAIN_BATCH), nccl=True)
+        ddp = dp_probe.stepped[0]
+        if type(ddp).__name__ != "DistributedDataParallel":
+            raise AssertionError(f"one-rank group: the train step ran {type(ddp).__name__}")
+        missing = [k for k in TRAIN_KERNELS if dp_counts.get(k, 0) < 1]
+        if missing:
+            raise AssertionError(f"data parallel: kernels {missing} never launched ({dp_counts})")
+        if dp_probe.step_launches != plain_probe.step_launches or dp_counts != plain_counts:
+            raise AssertionError(f"data parallel launches {dp_probe.step_launches} / {dp_counts} differ from "
+                                 f"no group's {plain_probe.step_launches} / {plain_counts}")
+        if sorted(dp_weights) != sorted(plain_weights):
+            raise AssertionError(f"one-rank group: weight keys {sorted(set(dp_weights) ^ set(plain_weights))}")
+        weights_err, weights_worst = weights_rel_err(dp_weights, plain_weights)
+        one_rank = {"loss_fn": rel_err(dp_scalars["train/loss_fn"], plain_scalars["train/loss_fn"]),
+                    "weights": weights_err, "weights_worst": weights_worst,
+                    "weights_bit_equal": all(torch.equal(dp_weights[k], v) for k, v in plain_weights.items())}
+        if len(dp_scalars["train/loss_fn"]) != DP_MICRO_STEPS or max(one_rank["loss_fn"], one_rank["weights"]) > \
+                DP_ONE_RANK_TOL:
+            raise AssertionError(f"one-rank NCCL group against no group: {one_rank}")
+
+        # (b) two gloo ranks of TRAIN_BATCH pairs against one process of the global batch
+        global_yaml = dp_yaml(tmp, "global", DP_RANKS * TRAIN_BATCH)
+        _, _, ref_scalars, ref_weights = dp_train_in_process(global_yaml, nccl=False)
+        ranks = run_gloo_ranks(dp_yaml(tmp, "gloo", TRAIN_BATCH), tmp)
+        two_rank = check_ranks("two gloo ranks", osp.join(tmp, "gloo"), ref_scalars, ref_weights,
+                               initial_weights(global_yaml), ranks)
+        emit({"check": "data_parallel", "one_rank_nccl_vs_no_group": one_rank, "two_gloo_ranks_vs_global_batch":
+              two_rank, "tolerances": {"one_rank": DP_ONE_RANK_TOL, "loss": [DP_LOSS_RTOL, DP_LOSS_ATOL],
+                                       "val": DP_VAL_TOL, "weights": DP_WEIGHT_TOL}, "lr": DP_LR})
+        # timing: DP_TIMING_STEPS micro-steps a run, no group and the one-rank
+        # group in turns (plain, group, group, plain), then two gloo ranks;
+        # the two runs without a group also give the run-to-run spread
+        timed, no_group_weights = {"no_group": [], "ddp_nccl_1_rank": []}, []
+        for i, nccl in enumerate((False, True, True, False)):
+            probe, _, _, weights = dp_train_in_process(dp_yaml(tmp, f"time{i}", TRAIN_BATCH, DP_TIMING_STEPS), nccl,
+                                                       DP_TIMING_STEPS)
+            timed["ddp_nccl_1_rank" if nccl else "no_group"].append(probe.step_ms)
+            if not nccl:
+                no_group_weights.append(weights)
+        timed_ranks = run_gloo_ranks(dp_yaml(tmp, "gloo_time", TRAIN_BATCH, DP_TIMING_STEPS), tmp)
+        for r in timed_ranks:
+            timed[f"gloo_rank_{r['rank']}"] = [r["step_ms"]]
+        grad_bytes = sum(p.numel() * p.element_size() for p in ddp.parameters() if p.requires_grad)
+        spread, spread_worst = weights_rel_err(*no_group_weights)
+        emit({"no_group_run_to_run": {"weights": spread, "weights_worst": spread_worst,
+                                      "micro_steps": DP_TIMING_STEPS, "lr": DP_LR}})
+        emit({"data_parallel_timing": {
+            "micro_step_ms": {k: [micro_step_ms(run) for run in runs] for k, runs in timed.items()},
+            "micro_step_ms_each": timed, "micro_steps_a_run": DP_TIMING_STEPS,
+            "grad_bytes_all_reduced_per_update": grad_bytes, "gloo_rank_grad_bytes": [r["grad_bytes"] for r in ranks],
+            "parameters": sum(p.numel() for p in ddp.parameters()),
+            "launches_per_dp_micro_step": dp_probe.step_launches,
+            "launches_per_gloo_micro_step": [r["step_launches"] for r in ranks],
+            "packs_s": packs_s}, "card": card})
+    emit({"phase": "data_parallel", "seconds": time.perf_counter() - start})
+    return dp_probe.step_launches
+
+
+def run_torchrun_ranks(path, out_dir, n):
+    """``n`` ranks of dp_rank_main started by torchrun with
+    DEEPCLR_DISTRIBUTED=1 (the launch README.md gives; NCCL, one card a
+    rank)."""
+    os.makedirs(out_dir, exist_ok=True)
+    cmd = [sys.executable, "-m", "torch.distributed.run", f"--nproc_per_node={n}", f"--master_port={free_port()}",
+           osp.join(REPO, "chip_smoke.py"), "--dp-rank", path, out_dir]
+    proc = subprocess.Popen(cmd, env=dict(os.environ, DEEPCLR_DISTRIBUTED="1"), cwd=REPO, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    return wait_ranks([proc], out_dir, n)
+
+
+def run_multi_card(card, n):
+    """``chip_smoke.py --dp-cards``: phase 11's comparison across the
+    host's n cards (NCCL, torchrun), against one process of the global
+    batch (n x 5 pairs) on card 0, then each rank's micro-step timing."""
+    start = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        packs_s = write_dp_packs(tmp, ranks=n)
+        global_yaml = dp_yaml(tmp, "global", n * TRAIN_BATCH)
+        _, _, ref_scalars, ref_weights = dp_train_in_process(global_yaml, nccl=False)
+        ranks = run_torchrun_ranks(dp_yaml(tmp, "cards", TRAIN_BATCH), osp.join(tmp, "cards_out"), n)
+        result = check_ranks(f"{n} NCCL ranks", osp.join(tmp, "cards"), ref_scalars, ref_weights,
+                             initial_weights(global_yaml), ranks)
+        emit({"check": "data_parallel_cards", "ranks": n, "vs_global_batch": result,
+              "tolerances": {"loss": [DP_LOSS_RTOL, DP_LOSS_ATOL], "val": DP_VAL_TOL, "weights": DP_WEIGHT_TOL},
+              "lr": DP_LR})
+        plain = dp_train_in_process(dp_yaml(tmp, "time_plain", TRAIN_BATCH, DP_TIMING_STEPS), False,
+                                    DP_TIMING_STEPS)[0]
+        timed = run_torchrun_ranks(dp_yaml(tmp, "time_cards", TRAIN_BATCH, DP_TIMING_STEPS),
+                                   osp.join(tmp, "time_out"), n)
+        emit({"data_parallel_cards_timing": {
+            "micro_step_ms": {"no_group_card_0": micro_step_ms(plain.step_ms),
+                              **{f"nccl_rank_{r['rank']}": micro_step_ms(r["step_ms"]) for r in timed}},
+            "micro_step_ms_each": {"no_group_card_0": plain.step_ms,
+                                   **{f"nccl_rank_{r['rank']}": r["step_ms"] for r in timed}},
+            "micro_steps_a_run": DP_TIMING_STEPS, "grad_bytes_all_reduced_per_update": ranks[0]["grad_bytes"],
+            "launches_per_micro_step": [r["step_launches"] for r in ranks], "packs_s": packs_s}, "card": card})
+    emit({"phase": "data_parallel_cards", "seconds": time.perf_counter() - start})
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke needs a CUDA card",
@@ -2166,6 +2589,7 @@ def main():
     with torch.inference_mode():
         run_icp_phase(dev, card, {"deepclr_phase7": deepclr_run, "deepclr_phase8_04": trained_run})
     run_variants_phase(model, dev, card, metrics["forward_pairs_per_s"], raycast)
+    dp_launches = run_data_parallel_phase(card)
     launches = {**{k: serve_counts[k] for k in SERVING_KERNELS},
                 "fused_sa_bwd": train_counts["fused_sa_bwd"],
                 "fused_sa_argmax": argmax_counts["fused_sa_argmax"]}
@@ -2177,6 +2601,7 @@ def main():
                      "launches": launches[name], "max_abs_err": errs[name], "ms": k["ms"],
                      "plain_ms": k["plain_ms"], "bound_ms": bound_ms, "bound_by": bound_by,
                      "library_ms": None, "device_ms": k["device_ms"],
+                     "launches_dp_micro_step": dp_launches[-1].get(name, 0),
                      **({"bound_issue_ms": k["bound_issue_ms"]} if "bound_issue_ms" in k else {})})
     emit({"launches_train_path_4_micro_steps": train_counts})
     emit({"kernels": rows})
@@ -2185,5 +2610,29 @@ def main():
     return 0
 
 
+def cards_main():
+    """``chip_smoke.py --dp-cards``: data parallel across every card of the
+    host (at least two); the device line, then the card's name and power
+    limit, and the ok line as main() prints them."""
+    if torch.cuda.device_count() < 2:
+        print("chip_smoke --dp-cards: needs two or more CUDA cards", file=sys.stderr)
+        return 1
+    from deepclr_tpu_torch import ops
+
+    kind = torch.cuda.get_device_name(0)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+    emit({"phase": "device", "kind": kind, "count": torch.cuda.device_count(), "nvidia_smi": smi.splitlines()})
+    ops.build_all()
+    run_multi_card(smi.splitlines()[0], torch.cuda.device_count())
+    print(f"nvidia-smi: {smi.splitlines()[0]}", flush=True)
+    emit({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}})
+    return 0
+
+
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--dp-rank"]:
+        sys.exit(dp_rank_main(*sys.argv[2:4]))
+    if sys.argv[1:2] == ["--dp-cards"]:
+        sys.exit(cards_main())
     sys.exit(main())

@@ -6,8 +6,18 @@ a non-finite loss, and interrupt / exception checkpoints.  ``train`` takes
 the ``Config`` of ``config.load_config``; ``run_trainer`` takes plain dicts
 with the sections of a training YAML (``Config.to_dict()``, or
 ``configs.KITTI_TRAIN_CFG``) and sized iterables of batch dicts with the
-keys of ``BATCH_KEYS`` (``data.DataLoader``, or lists).  Data-parallel
-training is not part of this package.
+keys of ``BATCH_KEYS`` (``data.DataLoader``, or lists).
+
+Data parallel (a process group joined by ``parallel.maybe_initialize``):
+each process trains on its own loader shard (``train``), the model runs
+under DistributedDataParallel (``run_trainer``), and the global batch is
+``batch_size`` × the process count, as in the JAX package.  Gradients,
+batch-norm statistics, the logged metrics and the validation means are the
+global batch's; only rank 0 writes files.  Dropout masks are drawn at the
+global batch's shape in JAX's process-major layout (rank r applies rows
+[r·B, (r+1)·B)); as the loader deals sample i to rank i mod W, they equal
+the masks of one process fed the ranks' batches side by side, not those
+of a plain one-process run of the global batch.
 """
 from __future__ import annotations
 
@@ -19,19 +29,23 @@ import shutil
 import signal
 import threading
 import time
-from contextlib import contextmanager
+from contextlib import contextmanager, nullcontext
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, Optional
 
 import numpy as np
 import torch
 from torch import nn
+from torch.nn.parallel import DistributedDataParallel
 
 from ..data import make_data_loader
 from ..evaluation import Evaluator
 from ..losses import make_loss_fn, make_metric_fns
 from ..models import build_model
 from ..models.deepclr import OutputSimple
+from ..parallel import (allgather_host, allgather_host_f64, allgather_host_strings, initialized, is_primary,
+                        local_device, mean_over_processes, process_count, process_index, set_process_group,
+                        wrap_data_parallel)
 from ..solver import make_optimizer, make_schedule
 from ..utils.logging import create_logger, create_summary_writer
 from .checkpoint import Checkpointer, load_checkpoint
@@ -140,7 +154,8 @@ def make_train_step(model: nn.Module, optimizer, loss_fn: Callable, metric_fns: 
                     weight_ema_decay: float = 0.0) -> Callable:
     """The train step: (state, batch, lr) -> metric EMAs.
 
-    Each micro-step writes ``lr`` into the optimizer, runs the model on the
+    ``model`` is the model or its DistributedDataParallel wrapper.  Each
+    micro-step writes ``lr`` into the optimizer, runs the model on the
     batch, and adds the gradient of loss / k to the parameters' ``.grad``
     (k = ``accumulation_steps``).  Every k-th micro-step the optimizer
     updates the parameters and the gradients are cleared, so the optimizer's
@@ -152,11 +167,17 @@ def make_train_step(model: nn.Module, optimizer, loss_fn: Callable, metric_fns: 
     the model's own loss module's.  The step puts the model in training
     mode, so a pose head with dropout (keep probability < 1) drops out,
     with masks seeded from the model's seed and ``state.step``: a resumed
-    run draws the masks an uninterrupted one would.
+    run draws the masks an uninterrupted one would.  Under
+    DistributedDataParallel the first k − 1 micro-steps of an update keep
+    their gradients local (``no_sync``) and the k-th averages the
+    accumulated gradients over the processes; the metric values of every
+    micro-step are averaged over the processes before the EMAs.
     """
     k = int(accumulation_steps)
-    device = next(model.parameters()).device
-    heads = [m for m in model.modules() if isinstance(m, OutputSimple)]
+    ddp = model if isinstance(model, DistributedDataParallel) else None
+    net = model.module if ddp is not None else model
+    device = next(net.parameters()).device
+    heads = [m for m in net.modules() if isinstance(m, OutputSimple)]
 
     def train_step(state: TrainState, batch: Dict[str, Any], lr: float) -> Dict[str, torch.Tensor]:
         if state.param_ema is not None and not weight_ema_decay > 0.0:
@@ -164,21 +185,23 @@ def make_train_step(model: nn.Module, optimizer, loss_fn: Callable, metric_fns: 
         for group in optimizer.param_groups:
             group["lr"] = float(lr)
         b = _to_device(batch, device)
-        model.train()
+        net.train()
         for head in heads:
             head.seed_dropout(state.step)
-        y_pred, model_loss = model(b["template"], b["source"], b.get("template_mask"),
-                                   b.get("source_mask"), b.get("aug_template"), b.get("aug_source"),
-                                   y=b["y"])
-        loss = model_loss if use_model_loss else loss_fn(y_pred, b["y"])
-        (loss / k).backward()
+        local = ddp is not None and (state.step + 1) % k != 0
+        with ddp.no_sync() if local else nullcontext():
+            y_pred, model_loss = model(b["template"], b["source"], b.get("template_mask"),
+                                       b.get("source_mask"), b.get("aug_template"), b.get("aug_source"),
+                                       y=b["y"])
+            loss = model_loss if use_model_loss else loss_fn(y_pred, b["y"])
+            (loss / k).backward()
         state.step += 1
         if state.step % k == 0:
             optimizer.step()
             optimizer.zero_grad(set_to_none=True)
             if state.param_ema is not None:
                 with torch.no_grad():
-                    for n, p in model.named_parameters():
+                    for n, p in net.named_parameters():
                         e = state.param_ema[n]
                         e.copy_(e * weight_ema_decay + (1.0 - weight_ema_decay) * p)
         with torch.no_grad():
@@ -186,6 +209,9 @@ def make_train_step(model: nn.Module, optimizer, loss_fn: Callable, metric_fns: 
             y_pred = y_pred.detach()
             for name, fn in metric_fns.items():
                 values[name] = fn(y_pred, b["y"])
+            if initialized():  # one all-reduce: the global batch's values
+                values = dict(zip(values, mean_over_processes(
+                    torch.stack([v.float().reshape(()) for v in values.values()])).unbind()))
             for name, v in values.items():
                 old = state.metrics_ema.get(name)
                 state.metrics_ema[name] = v if old is None or state.step == 1 else \
@@ -234,23 +260,38 @@ def train(cfg) -> "TrainState":
     experiment artifacts there: ``config.yaml``, ``model_config.yaml`` and
     the model code under ``models/``; with its checkpoints the directory is
     a model directory for ``python -m deepclr_tpu_torch.inference``.
+    Under a process group each process builds the model on its own device
+    and loads its shard of both splits (sample i goes to rank i mod the
+    process count), and only rank 0 writes the artifacts and the log file.
     Returns the final train state."""
-    model = build_model(cfg.model, device=cfg.device, seed=cfg.seed)
+    device = cfg.device
+    if initialized() and torch.device(device).type == "cuda":
+        device = local_device()
+    model = build_model(cfg.model, device=device, seed=cfg.seed)
     plain = cfg.to_dict()
     optimizer = make_optimizer(plain, model.parameters())
     schedule = make_schedule(plain)
     loss_fn = make_loss_fn(plain["metrics"]["loss"], cfg.model.label_type)
     metric_fns = make_metric_fns(plain["metrics"]["loss"], plain["metrics"]["other"], cfg.model.label_type)
-    train_loader = make_data_loader(cfg, is_train=True)
-    val_loader = make_data_loader(cfg, is_train=False)
-    if cfg.output_dir:
+    shard = dict(shard_index=process_index(), num_shards=process_count())
+    train_loader = make_data_loader(cfg, is_train=True, **shard)
+    val_loader = make_data_loader(cfg, is_train=False, **shard)
+    if cfg.output_dir and is_primary():
         os.makedirs(cfg.output_dir, exist_ok=True)
         cfg.write_file(osp.join(cfg.output_dir, "config.yaml"))
         cfg.model.write_file(osp.join(cfg.output_dir, "model_config.yaml"))
         store_models_code(osp.join(cfg.output_dir, "models"))
-    create_logger(logger.name, save_dir=cfg.output_dir)
+    create_logger(logger.name, save_dir=cfg.output_dir, distributed_rank=process_index())
     return run_trainer(plain, model, train_loader, val_loader, optimizer, schedule, loss_fn, metric_fns,
                        output_dir=cfg.output_dir, checkpoint=cfg.checkpoint)
+
+
+def _average_gradients(model: nn.Module) -> None:
+    grads = [p.grad for p in model.parameters() if p.grad is not None]
+    if grads:
+        flat = mean_over_processes(torch.cat([g.reshape(-1) for g in grads]))
+        for g, v in zip(grads, flat.split([g.numel() for g in grads])):
+            g.copy_(v.view_as(g))
 
 
 def _have_matplotlib() -> bool:
@@ -283,6 +324,19 @@ def run_trainer(cfg: Dict[str, Any], model: nn.Module, train_loader, val_loader,
     validation.  ``checkpoint`` resumes from a full checkpoint.  A
     non-finite loss at a log period raises ValueError (after an exception
     checkpoint).
+
+    Under a process group (of any size) the loop is the data-parallel one:
+    each process passes its own loader shards, of equal lengths and full
+    batches; the model trains under DistributedDataParallel, its batch
+    norms and dropout set to the group (``set_process_group``) until the
+    loop ends, and its
+    checkpoints hold the model's own state dict (no ``module.`` prefix),
+    so they serve and resume with or without a group.  Validation averages
+    the metric means over the processes and gathers the predictions,
+    labels, names and stamps to rank 0 for the Evaluator, in the dataset's
+    order.  Only rank 0 (``is_primary``) writes checkpoints and summaries.
+    SIGINT on rank 0 writes its interrupt checkpoint; the other ranks then
+    fail at their next collective, after ``parallel.distributed.TIMEOUT``.
     """
     opt_cfg, log_cfg = cfg["optimizer"], cfg.get("logging") or {}
     sched_cfg = cfg.get("scheduler") or {}
@@ -306,12 +360,7 @@ def run_trainer(cfg: Dict[str, Any], model: nn.Module, train_loader, val_loader,
         epochs = int(max_epochs)
         max_iterations = epochs * loader_len
 
-    train_step = make_train_step(
-        model, optimizer, loss_fn, metric_fns,
-        accumulation_steps=int(opt_cfg.get("accumulation_steps", 1)),
-        ema_alpha=float((cfg.get("metrics") or {}).get("running_average_alpha", 0.5)),
-        use_model_loss=getattr(model, "loss_module", None) is not None,
-        weight_ema_decay=weight_ema_decay)
+    accumulation_steps = int(opt_cfg.get("accumulation_steps", 1))
     eval_step = make_eval_step(model, {**metric_fns, "loss_fn": loss_fn})
     state = create_train_state(model, weight_ema=weight_ema_decay > 0.0)
 
@@ -322,8 +371,17 @@ def run_trainer(cfg: Dict[str, Any], model: nn.Module, train_loader, val_loader,
         start_epoch, iteration = int(restored["epoch"]), int(restored["iteration"])
         logger.info(f"Restored checkpoint at epoch {start_epoch}, iteration {iteration}")
 
+    world = process_count()
+    net = wrap_data_parallel(model) if initialized() else model
+    train_step = make_train_step(
+        net, optimizer, loss_fn, metric_fns,
+        accumulation_steps=accumulation_steps,
+        ema_alpha=float((cfg.get("metrics") or {}).get("running_average_alpha", 0.5)),
+        use_model_loss=getattr(model, "loss_module", None) is not None,
+        weight_ema_decay=weight_ema_decay)
+
     checkpointer = writer = None
-    if output_dir:
+    if output_dir and is_primary():
         checkpointer = Checkpointer(output_dir, n_saved=int(log_cfg.get("checkpoint_n_saved", 10)))
         writer = create_summary_writer(output_dir)
 
@@ -349,17 +407,31 @@ def run_trainer(cfg: Dict[str, Any], model: nn.Module, train_loader, val_loader,
             for k, v in metrics.items():
                 sums[k] = sums.get(k, 0.0) + float(v)
             count += 1
-            y_gt = torch.as_tensor(vbatch["y"], dtype=torch.float32)
+            y_gt = np.asarray(vbatch["y"], dtype=np.float32)
             n = y_gt.shape[0]
             names = list(vbatch.get("d", ["val"] * n))
             stamps = np.asarray([np.ravel(s)[-1] for s in vbatch.get("t", np.zeros(n))], dtype=np.float64)
-            m_pred = label_type.to_matrix(y_pred.float().cpu()).numpy()
-            m_gt = label_type.to_matrix(y_gt).numpy()
-            for i in range(n):
+            y_host = y_pred.float().cpu().numpy()
+            if world > 1:
+                # rank r's row j is sample (j·W + r) of the global batch (the
+                # loader deals sample i to rank i mod W): back to that order
+                order = np.arange(world * n).reshape(world, n).T.ravel()
+                y_host, y_gt = allgather_host(y_host)[order], allgather_host(y_gt)[order]
+                stamps = allgather_host_f64(stamps)[order]
+                gathered = allgather_host_strings(names)
+                names = [gathered[i] for i in order]
+                if not is_primary():
+                    continue
+            m_pred = label_type.to_matrix(torch.from_numpy(y_host)).numpy()
+            m_gt = label_type.to_matrix(torch.from_numpy(y_gt)).numpy()
+            for i in range(len(names)):
                 export.add_transforms(str(names[i]), float(stamps[i]), m_pred[i], m_gt[i])
         if count == 0:
             return
         means = {k: v / count for k, v in sums.items()}
+        if world > 1:
+            means = dict(zip(means, mean_over_processes(
+                torch.tensor(list(means.values()), dtype=torch.float64)).tolist()))
         logger.info(f"Validation Results - Epoch[{epoch}] Iteration[{iteration}] "
                     f"Avg Loss: {means.get('loss_fn', float('nan')):.6f}")
         validation_count += 1
@@ -384,6 +456,11 @@ def run_trainer(cfg: Dict[str, Any], model: nn.Module, train_loader, val_loader,
             writer.add_scalar("val/kitti_r_err", total_seg.mean.rotation.kitti, iteration)
 
     def save_ckpt(special: Optional[str] = None) -> None:
+        if world > 1 and special in (None, "final") and state.step % accumulation_steps:
+            # mid-update, each rank holds the gradient of its own shard:
+            # store their mean, which every rank takes over (the update
+            # that averages them over the ranks stays the same)
+            _average_gradients(model)
         if checkpointer is None:
             return
         payload = state.state_dict(model, optimizer)
@@ -393,7 +470,7 @@ def run_trainer(cfg: Dict[str, Any], model: nn.Module, train_loader, val_loader,
         else:
             checkpointer.save_checkpoint(epoch, iteration, payload, payload["model"], state.param_ema)
 
-    logger.info(f"Start training for {epochs} epochs ({max_iterations} iterations)")
+    logger.info(f"Start training for {epochs} epochs ({max_iterations} iterations, {world} processes)")
     epoch = start_epoch
     _shutdown.clear()
     global _interrupt_pending
@@ -456,6 +533,8 @@ def run_trainer(cfg: Dict[str, Any], model: nn.Module, train_loader, val_loader,
         save_ckpt("exception")
         raise
     finally:
+        if net is not model:
+            set_process_group(model, None)
         if writer is not None:
             writer.flush()
             writer.close()

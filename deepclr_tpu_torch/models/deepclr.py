@@ -14,6 +14,7 @@ from __future__ import annotations
 from typing import Optional, Sequence
 
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from .. import ops
@@ -213,7 +214,14 @@ class OutputSimple(nn.Module):
     (``dropout_seed``, step), as the reference folds the step into its key,
     so a run resumed at a step draws the masks an uninterrupted run draws
     there; the train step calls it before every forward.  Eval mode drops
-    nothing."""
+    nothing.  ``process_group`` is None by default; data-parallel training
+    sets it (``parallel.set_process_group``).  Under a group of W ranks each
+    rank then draws the masks of the global batch, W × B rows, and applies
+    rows [r·B, (r+1)·B) of them: JAX's process-major layout of the global
+    batch, where rank r's rows follow rank r − 1's.  The loader deals
+    sample i to rank i mod W, so these masks are those of a one-process
+    run fed the ranks' batches side by side, not those of a plain run of
+    the global batch in the dataset's order."""
 
     def __init__(self, in_dim: int, mlp: Sequence[int], linear: Sequence[int],
                  label_type: LabelType, batch_norm: bool = False, dropout_keep: float = 1.0,
@@ -223,6 +231,7 @@ class OutputSimple(nn.Module):
         self.dropout_keep = float(dropout_keep)
         self.dropout_seed = int(dropout_seed)
         self._dropout_gen: Optional[torch.Generator] = None
+        self.process_group = None
         self.conv = MLP(in_dim, mlp, compute_dtype, batch_norm=batch_norm)
         self.linear = MLP(linear[0], linear[1:], compute_dtype, batch_norm=batch_norm)
         self.output = Dense(linear[-1], label_type.dim, bias_value=label_type.bias)
@@ -238,7 +247,16 @@ class OutputSimple(nn.Module):
     def _dropout(self, h: torch.Tensor) -> torch.Tensor:
         if self._dropout_gen is None or self._dropout_gen.device != h.device:
             self.seed_dropout(0)
-        keep = torch.rand(h.shape, generator=self._dropout_gen, device=h.device) < self.dropout_keep
+        world = 1 if self.process_group is None else dist.get_world_size(self.process_group)
+        if world > 1:
+            # data parallel: draw at the global batch's shape and keep this
+            # rank's rows in JAX's process-major layout, [r·B, (r+1)·B)
+            b, r = h.shape[0], dist.get_rank(self.process_group)
+            u = torch.rand((world * b,) + tuple(h.shape[1:]), generator=self._dropout_gen,
+                           device=h.device)[r * b:(r + 1) * b]
+        else:
+            u = torch.rand(h.shape, generator=self._dropout_gen, device=h.device)
+        keep = u < self.dropout_keep
         return torch.where(keep, h / self.dropout_keep, torch.zeros_like(h))
 
     def features(self, x: torch.Tensor) -> torch.Tensor:

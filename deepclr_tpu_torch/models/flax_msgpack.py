@@ -39,7 +39,7 @@ def _dtype(name: str) -> np.dtype:
 
 
 def _ndarray(data: bytes) -> np.ndarray:
-    value = _Reader(data).read_all()
+    value = MsgpackReader(data).read_all()
     if not (isinstance(value, list) and len(value) == 3 and isinstance(value[0], list)
             and isinstance(value[1], str) and isinstance(value[2], bytes)):
         raise ValueError("flax msgpack: an ndarray extension is not (shape, dtype name, bytes)")
@@ -50,7 +50,11 @@ def _ndarray(data: bytes) -> np.ndarray:
     return arr.astype(arr.dtype.newbyteorder("="))
 
 
-class _Reader:
+class MsgpackReader:
+    """A msgpack decoder with Flax's extension types.  Subclasses change
+    how strings come back (``text``) and what a decoded map becomes
+    (``finish_map``)."""
+
     def __init__(self, data: bytes):
         self.data = memoryview(data)
         self.pos = 0
@@ -61,6 +65,12 @@ class _Reader:
         out = bytes(self.data[self.pos:self.pos + n])
         self.pos += n
         return out
+
+    def text(self, n: int) -> Any:
+        return self.take(n).decode("utf-8")
+
+    def finish_map(self, out: dict) -> Any:
+        return _unchunk(out) if out.get(_CHUNKED) is True else out
 
     def unpack(self, fmt: str) -> Any:
         return struct.unpack(">" + fmt, self.take(struct.calcsize(">" + fmt)))[0]
@@ -91,7 +101,7 @@ class _Reader:
         if 0x90 <= b <= 0x9F:
             return [self.read() for _ in range(b & 0x0F)]
         if 0xA0 <= b <= 0xBF:
-            return self.take(b & 0x1F).decode("utf-8")
+            return self.text(b & 0x1F)
         simple = {0xC0: None, 0xC2: False, 0xC3: True}
         if b in simple:
             return simple[b]
@@ -100,7 +110,7 @@ class _Reader:
             return self.take(self.unpack(sized[b]))
         sized = {0xD9: "B", 0xDA: "H", 0xDB: "I"}  # str
         if b in sized:
-            return self.take(self.unpack(sized[b])).decode("utf-8")
+            return self.text(self.unpack(sized[b]))
         sized = {0xDC: "H", 0xDD: "I"}  # array
         if b in sized:
             return [self.read() for _ in range(self.unpack(sized[b]))]
@@ -126,7 +136,7 @@ class _Reader:
             if isinstance(key, (dict, list)):
                 raise ValueError("flax msgpack: a map key is a container")
             out[key] = self.read()
-        return _unchunk(out) if out.get(_CHUNKED) is True else out
+        return self.finish_map(out)
 
 
 def _items(tree: dict, what: str) -> Tuple[Any, ...]:
@@ -147,7 +157,7 @@ def _unchunk(tree: dict) -> np.ndarray:
 def restore_flax_msgpack(data: bytes) -> Any:
     """Bytes of ``flax.serialization.to_bytes`` -> the nested dicts of numpy
     arrays (writable copies) and scalars that ``msgpack_restore`` gives."""
-    return _Reader(data).read_all()
+    return MsgpackReader(data).read_all()
 
 
 def read_flax_msgpack(path: str) -> Any:

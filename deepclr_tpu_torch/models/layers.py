@@ -67,11 +67,22 @@ class BatchNorm(nn.Module):
     ``momentum`` is the kept share); in evaluation mode the running
     statistics.  y = (x − mean)·rsqrt(var + 1e-5)·weight + bias in float32,
     returned in the compute dtype.  Parameters ``weight`` / ``bias`` and
-    buffers ``running_mean`` / ``running_var``, the reference's names."""
+    buffers ``running_mean`` / ``running_var``, the reference's names.
+
+    ``process_group`` is None (the default): the statistics are this
+    process's rows'.  Data-parallel training sets it
+    (``parallel.set_process_group``, called by ``wrap_data_parallel``);
+    the statistics are then the global batch's, as Flax computes them over
+    a sharded array: the sum, the sum of squares and the row count (float32,
+    exact to 2^24 rows) are summed over the group's ranks by an all-reduce
+    that autograd differentiates, so every rank normalises alike and keeps
+    the same running statistics, and a training forward is a collective
+    that every rank of the group runs."""
 
     def __init__(self, features: int, momentum: float = 0.99, epsilon: float = 1e-5):
         super().__init__()
         self.momentum, self.epsilon = momentum, epsilon
+        self.process_group = None
         self.weight = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("running_mean", torch.zeros(features))
@@ -88,8 +99,11 @@ class BatchNorm(nn.Module):
         xf = x.float()
         if self.training:
             axes = tuple(range(x.dim() - 1))
-            mean = xf.mean(axes)
-            var = torch.clamp_min((xf * xf).mean(axes) - mean * mean, 0.0)
+            if self.process_group is not None:
+                mean, mean2 = _global_moments(xf, axes, self.process_group)
+            else:
+                mean, mean2 = xf.mean(axes), (xf * xf).mean(axes)
+            var = torch.clamp_min(mean2 - mean * mean, 0.0)
             with torch.no_grad():
                 self.running_mean.copy_(self.momentum * self.running_mean + (1.0 - self.momentum) * mean)
                 self.running_var.copy_(self.momentum * self.running_var + (1.0 - self.momentum) * var)
@@ -97,6 +111,16 @@ class BatchNorm(nn.Module):
             mean, var = self.running_mean, self.running_var
         y = (xf - mean) * (torch.rsqrt(var + self.epsilon) * self.weight) + self.bias
         return y.to(compute_dtype)
+
+
+def _global_moments(xf: torch.Tensor, axes, group):
+    """E[x] and E[x²] over ``axes`` of the rows of every rank of ``group``."""
+    from torch.distributed.nn.functional import all_reduce
+
+    c = xf.shape[-1]
+    rows = xf.new_full((1,), float(xf.numel() // c))
+    total = all_reduce(torch.cat([xf.sum(axes), (xf * xf).sum(axes), rows]), group=group)
+    return total[:c] / total[-1], total[c:2 * c] / total[-1]
 
 
 class _Layer(nn.Module):

@@ -14,6 +14,21 @@ links, a log file and the summaries, and is a model directory for
 SIGINT stops the run with an interrupt checkpoint and exit status 0; once
 the state is persisted, further SIGINTs are ignored.  SIGUSR1 dumps every
 thread's stack to stderr without stopping the run.
+
+Data-parallel training runs one process per device, each with the same
+arguments; ``batch_size`` is then per process and the global batch is
+``batch_size`` × the process count.  With torchrun:
+
+    DEEPCLR_DISTRIBUTED=1 torchrun --nproc_per_node=N -m deepclr_tpu_torch.training CONFIG.yaml
+
+or one process a rank with the JAX package's contract:
+
+    DEEPCLR_COORDINATOR=host:port DEEPCLR_NUM_PROCESSES=N DEEPCLR_PROCESS_ID=r \
+        [DEEPCLR_LOCAL_DEVICE_IDS=d] python -m deepclr_tpu_torch.training CONFIG.yaml
+
+(``parallel/distributed.py`` has the whole contract.)  Only rank 0 writes
+the run directory; SIGINT to rank 0 alone leaves its interrupt checkpoint
+and the other ranks fail after the process group's timeout.
 """
 from __future__ import annotations
 
@@ -24,6 +39,7 @@ import sys
 
 from .config import Mode, load_config
 from .engine import install_sigint_handler, train
+from .parallel import maybe_initialize, shutdown
 
 __all__ = ["main"]
 
@@ -35,14 +51,20 @@ def main(argv=None) -> None:
     # displaced: it raises KeyboardInterrupt while the run is live and turns
     # into a log line once the resumable state is persisted
     install_sigint_handler()
-    parser = argparse.ArgumentParser(description="Model training.")
-    parser.add_argument("config", type=str, help="training configuration (*.yaml)")
-    parser.add_argument("--ckpt", type=str, default=None, help="checkpoint for continuing training")
-    args = parser.parse_args(argv)
+    # data parallel: join the process group when the environment asks for
+    # it (DEEPCLR_COORDINATOR / DEEPCLR_DISTRIBUTED); one process pays nothing
+    maybe_initialize()
+    try:
+        parser = argparse.ArgumentParser(description="Model training.")
+        parser.add_argument("config", type=str, help="training configuration (*.yaml)")
+        parser.add_argument("--ckpt", type=str, default=None, help="checkpoint for continuing training")
+        args = parser.parse_args(argv)
 
-    mode = Mode.NEW if args.ckpt is None else Mode.CONTINUE
-    cfg = load_config(args.config, mode, ckpt_filename=args.ckpt)
-    train(cfg)
+        mode = Mode.NEW if args.ckpt is None else Mode.CONTINUE
+        cfg = load_config(args.config, mode, ckpt_filename=args.ckpt)
+        train(cfg)
+    finally:
+        shutdown()
 
 
 if __name__ == "__main__":

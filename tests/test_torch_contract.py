@@ -42,6 +42,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             "deepclr_tpu_torch.native", "deepclr_tpu_torch.native.pack_reader", "deepclr_tpu_torch.native.morton_sort",
             "deepclr_tpu_torch.kitti_devkit.__main__", "deepclr_tpu_torch.kitti_devkit.plots",
             "deepclr_tpu_torch.evaluation.cli", "deepclr_tpu_torch.evaluation.__main__"} <= set(modules)
+    assert {"deepclr_tpu_torch.parallel", "deepclr_tpu_torch.parallel.distributed", "deepclr_tpu_torch.parallel.mesh",
+            "deepclr_tpu_torch.data.readers", "deepclr_tpu_torch.data.lmdb_reader", "deepclr_tpu_torch.utils.flops",
+            "deepclr_tpu_torch.utils.profiling", "deepclr_tpu_torch.utils.tensor", "deepclr_tpu_torch.utils.factory",
+            "deepclr_tpu_torch.utils.parsing", "deepclr_tpu_torch.utils.pcv"} <= set(modules)
     code = (
         "import importlib, json, sys\n"
         f"for m in {modules!r}: importlib.import_module(m)\n"

@@ -607,3 +607,59 @@ def test_batch_norm_motion_embedding_running_stats_on_card_match_cpu(dev):
     torch.testing.assert_close(out["cuda"], out["cpu"], atol=1e-5 * max(1.0, out["cpu"].abs().max().item()), rtol=0)
     for k, v in stats["cpu"].items():
         torch.testing.assert_close(stats["cuda"][k], v, atol=1e-5 * max(1.0, v.abs().max().item()), rtol=0)
+
+
+def test_one_rank_nccl_data_parallel_step_equals_the_plain_step(dev):
+    """A one-rank NCCL group: make_train_step on the DistributedDataParallel
+    wrapper (one update of the flagship recipe, float32, 2 pairs x 4096)
+    launches what the plain step launches and gives its parameters and
+    metrics within 1e-6 of their scale (B4 sums with atomics, in a varying
+    order, so two runs may differ in the last bits)."""
+    import socket
+
+    from deepclr_tpu_torch import parallel, solver
+    from deepclr_tpu_torch.configs import KITTI_TRAIN_CFG
+    from deepclr_tpu_torch.engine import create_train_state, make_train_step
+    from deepclr_tpu_torch.losses import make_loss_fn, make_metric_fns
+    from deepclr_tpu_torch.synthetic import train_batch
+
+    cfg = copy.deepcopy(KITTI_MODEL_CFG)
+    cfg["params"]["compute_dtype"] = "float32"
+    batch = train_batch(2, 4096, seed=3)
+    metrics = KITTI_TRAIN_CFG["metrics"]
+
+    def one_update(wrap):
+        model = build_model(cfg, device=dev, seed=0)
+        step = make_train_step(parallel.wrap_data_parallel(model) if wrap else model,
+                               solver.make_optimizer(KITTI_TRAIN_CFG, model.parameters()),
+                               make_loss_fn(metrics["loss"], cfg["label_type"]),
+                               make_metric_fns(metrics["loss"], metrics["other"], cfg["label_type"]))
+        ops.reset_launch_counts()
+        ema = step(create_train_state(model), batch, 1e-3)
+        torch.cuda.synchronize()
+        return model, {k: v.item() for k, v in ema.items()}, ops.launch_counts()
+
+    plain, plain_ema, plain_counts = one_update(False)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    torch.distributed.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}", world_size=1, rank=0,
+                                         timeout=parallel.distributed.TIMEOUT)
+    try:
+        dp, dp_ema, dp_counts = one_update(True)
+    finally:
+        parallel.shutdown()
+    assert dp_counts == plain_counts and all(dp_counts[k] >= 1 for k in ("fps", "min_d2", "fused_sa", "fused_sa_bwd"))
+    for (name, p), q in zip(plain.named_parameters(), dp.parameters()):
+        assert (p - q).abs().max().item() <= 1e-6 * max(1.0, p.abs().max().item()), name
+    assert dp_ema.keys() == plain_ema.keys()
+    for k, v in plain_ema.items():
+        assert abs(dp_ema[k] - v) <= 1e-6 * max(1.0, abs(v)), k
+
+
+def test_peak_flops_per_chip_names_the_card(dev):
+    from deepclr_tpu_torch.utils import flops
+
+    assert flops.peak_flops_per_chip() == flops.peak_flops_per_chip(torch.cuda.get_device_name(0)) > 0
+    with pytest.raises(ValueError):
+        flops.peak_flops_per_chip("an unknown card")
