@@ -21,9 +21,15 @@ Phases, in order; any failure raises and exits non-zero:
    equal the twin's; the backward kernel, fed the forward kernel's output
    (so its recompute must select that kernel's winners),
    within 1e-4 of each result's scale of the twin fed the plain forward's
-   (the kernel sums with atomics, in a varying order), on these clouds and
-   on a dense-ball case (4096 points in a 4 m cube, ~33 points a 0.5 m
-   ball);
+   (the two sum in other fixed orders), on these clouds and on a
+   dense-ball case (4096 points in a 4 m cube, ~33 points a 0.5 m ball);
+   the backward (with its finishing launch) and B5's backward launched
+   twice on the same operands bit-equal in every output, in both dtypes,
+   on both cases; the finishing launch against its twin on the backward's
+   own workspace (da bit-equal, dW / db within 1e-5 of their scale); the
+   gather backward at MotionEmbedding's train shape (5 x 20480 rows of
+   128 into 1024) twice bit-equal, equal bit for bit to the CPU's
+   sequential scatter_add and within 1e-5 of the scale of the card's;
 4. serving path: the flagship KITTI model (random weights from seed 0)
    through ModelInferenceHelper.predict_batch on 16 pairs of 16384-point
    KITTI-like clouds, and 3 sequential frames through encode_register;
@@ -38,6 +44,8 @@ Phases, in order; any failure raises and exits non-zero:
    set-abstraction weight's gradient non-zero; the loss is finite, the
    parameters changed, and fps, min_d2, fused_sa and fused_sa_bwd launched;
    one micro-step with the argmax backward launches fused_sa_argmax; one
+   micro-step under torch.use_deterministic_algorithms(True) (scoped, then
+   restored) raises nothing; one
    float32 micro-step on 2 pairs x 4096 gives the CPU's gradients within
    2e-3 of each gradient's scale;
 6. timing with CUDA events (medians after warm-up): forward pairs/s at
@@ -177,11 +185,12 @@ Phases, in order; any failure raises and exits non-zero:
    any weight over the largest weight; the tensor that differs most on its
    own scale is printed beside it).  (a) train(cfg) in a one-rank NCCL
    process group (DistributedDataParallel, the kernels) against train(cfg)
-   without one: the train/loss_fn trajectory and the final weights within
-   1e-6 (B4 sums with atomics, so the weights may differ in the last
-   bits), the train step run by the DistributedDataParallel wrapper, and
-   B1-B4 launched in that run, each micro-step exactly as often as without
-   a group (the counts are zeroed just before the run).  (b) Two gloo
+   without one: the train/loss_fn trajectory and the final weights equal
+   bit for bit, the train step run by the DistributedDataParallel wrapper,
+   and B1-B4 (with the finishing launch and the gather backward) launched
+   in that run, each micro-step exactly as often as without a group (the
+   counts are zeroed just before the run); two runs without a group at lr
+   1e-3 equal bit for bit (losses and weights).  (b) Two gloo
    ranks on the one card (python -m deepclr_tpu_torch.training's main()
    in two processes, started with the DEEPCLR_COORDINATOR contract, each
    joining the group over gloo itself and stopped within 600 s) against
@@ -195,11 +204,24 @@ Phases, in order; any failure raises and exits non-zero:
    each train step, 12 micro-steps a run, medians after the first update,
    local and all-reducing micro-steps apart): no group and the one-rank
    group in turns (no group, group, group, no group), then each gloo
-   rank; the final weights of the two runs without a group against each
-   other (the run-to-run spread, printed, not gated); the gradient bytes
-   all-reduced an update and the launches a
-   data-parallel micro-step.  ``python3 chip_smoke.py --dp-rank YAML
-   OUT_DIR`` is one such rank.
+   rank; the two runs without a group (lr 1e-5, 12 micro-steps) equal bit
+   for bit; the gradient bytes all-reduced an update, the launches a
+   data-parallel micro-step, and the host time of the trainer's
+   end-of-iteration interrupt all-reduce (one-rank NCCL, each gloo rank).
+   ``python3 chip_smoke.py --dp-rank YAML OUT_DIR`` is one such rank;
+12. the data CLIs and demos (in a temporary directory, each through the
+   main() its ``python -m`` line calls): make_synthetic_kitti (sequences
+   00, 01, 04 of 7 frames of 32768 points) and make_synthetic_modelnet
+   (one train and one test model a shape of 2100 points); the converters
+   kitti_odometry, kitti_pairs, kitti_pairs_test, modelnet40 and
+   modelnet40_test on them, each pack read back by the dataflow (6 pairs
+   of 4-column clouds a sequence, 2048-point models, 22 noisy test packs);
+   2 micro-steps of the shipped kitti_synth.yaml from the converted packs
+   (the training kernels launched, the run directory complete); the KITTI
+   demo on that run directory (5 finite translation errors) and the
+   ModelNet40 demo from seed 0 (3), both on the card with fps, min_d2 and
+   fused_sa launched; export_kitti_poses on predictions of sequence 04,
+   its rows the predicted poses (calib.txt's Tr is the identity).
 
 ``python3 chip_smoke.py --dp-cards`` (a host with two or more cards, not
 part of the run above) runs phase 11's comparison across every card:
@@ -252,8 +274,13 @@ TPU_KERNELS = {
     "fused_sa_argmax": ("deepclr_tpu_torch/csrc/fused_sa.cu", f"{FUSED_SA_PALLAS}:441"),
     "fused_sa_bwd": ("deepclr_tpu_torch/csrc/fused_sa.cu", f"{FUSED_SA_PALLAS}:787"),
 }
+# the port's own kernels, each beside the TPU function whose work it serves
+OWN_KERNELS = {
+    "fused_sa_bwd_finish": ("deepclr_tpu_torch/csrc/fused_sa.cu", f"{FUSED_SA_PALLAS}:787"),
+    "gather_bwd": ("deepclr_tpu_torch/csrc/gather.cu", "deepclr_tpu/ops/grouping.py:45"),
+}
 SERVING_KERNELS = ("fps", "min_d2", "fused_sa")
-TRAIN_KERNELS = ("fps", "min_d2", "fused_sa", "fused_sa_bwd")
+TRAIN_KERNELS = ("fps", "min_d2", "fused_sa", "fused_sa_bwd", "fused_sa_bwd_finish", "gather_bwd")
 FPS_BATCHES = (32, 10, 1)     # FPS's path shapes: serving encode (2B), train encode (2B), sequential step
 SCENE_POINTS = 120_000        # a frame of about an HDL-64 scan: subsampled to NPTS
 SCENE_FRAMES = 8              # frames a sequence: 7 registrations
@@ -275,11 +302,13 @@ KITTI_BASE_YAML = "configs/training/kitti_base.yaml"
 DP_RANKS = 2                  # phase 11: two gloo ranks sharing the one card
 DP_MICRO_STEPS = 4            # each comparison run: 2 updates of accumulation 2
 DP_TIMING_STEPS = 12          # each timing run: the first update is the warm-up
-DP_ONE_RANK_TOL = 1e-6        # a one-rank group against no group (relative: losses, weights as in weights_rel_err)
+DP_ONE_RANK_TOL = 0.0         # a one-rank group against no group: bit-equal (losses, weights as in weights_rel_err)
 DP_LOSS_RTOL, DP_LOSS_ATOL = 5e-3, 1e-5  # the bound of tests/parallel/test_distributed_2proc.py
 DP_VAL_TOL = 1e-5             # validation scalars, two ranks against one process (relative)
 DP_WEIGHT_TOL = 1e-5          # final weights, the ranks' against one process's (as in weights_rel_err)
 DP_LR = 1e-5                  # comparison runs: a constant lr (see dp_yaml)
+DP_HIGH_LR = 1e-3             # two runs without a group at this lr, too, must be bit-equal
+INTERRUPT_FLAG_CALLS = 50     # timed calls of the trainer's end-of-iteration interrupt all-reduce
 DP_RANK_TIMEOUT_S = 600
 
 
@@ -468,8 +497,97 @@ def check_kernels(model, dev):
                 raise AssertionError(f"fused_sa_bwd {dtype} {name}: max |diff| {err} > 1e-4 of the scale {scale}")
         if got[2][1].abs().max().item() == 0.0 or got[0][3].any() or got[1][3].any():
             raise AssertionError(f"fused_sa_bwd {dtype}: no winner selected, or a gradient in the all-masked cloud")
+        check_repeat(f"fused_sa_bwd {dtype} 4 x {NPTS}", got, fused_sa.fused_sa_bwd(sa_op, active, out, g))
+        errs["fused_sa_bwd_finish"] = check_bwd_finish(sa_op, active, out, g)
+        check_winner_grads_repeat(sa_op, jstar, g, f"{dtype} 4 x {NPTS}")
         errs["fused_sa_bwd"] = max(worst, check_bwd_dense(model, dev, dtype))
+    errs["gather_bwd"] = check_gather_bwd(dev)
     return errs
+
+
+def _tensors(x):
+    if isinstance(x, torch.Tensor):
+        return [x]
+    return [t for y in x for t in _tensors(y)]
+
+
+def check_repeat(what, first, second):
+    """Raise unless two results of the same call on the same operands
+    (tensors, or nested lists of them) are equal bit for bit."""
+    xs, ys = _tensors(first), _tensors(second)
+    differ = [i for i, (x, y) in enumerate(zip(xs, ys)) if not torch.equal(x, y)]
+    emit({"check": "bit_equal_repeat", "what": what, "outputs": len(xs), "outputs_differing": differ})
+    if differ or len(xs) != len(ys):
+        raise AssertionError(f"{what}: two launches on the same operands differ in outputs {differ}")
+
+
+def check_bwd_finish(sa_op, active, out, g):
+    """B4's second launch against its plain twin on B4's own workspace:
+    dW / db within 1e-5 of each result's scale (the twin sums the rows in
+    another order), da bit-equal (both convert the same integers with one
+    rounding).  Returns the largest absolute error."""
+    from deepclr_tpu_torch.ops import fused_sa
+
+    _, part, da_fx, da_exp = fused_sa._bwd_first_launch(sa_op, active, out, g, fused_sa.KERNEL_WIDTHS)
+    got = fused_sa.fused_sa_bwd_finish(part, da_fx, da_exp)
+    ref = fused_sa._fused_sa_bwd_finish_plain(part, da_fx, da_exp)
+    if not torch.equal(got[0], ref[0]):
+        raise AssertionError("fused_sa_bwd_finish: da differs from the plain conversion")
+    worst = 0.0
+    for x, y in zip([*got[1], *got[2]], [*ref[1], *ref[2]]):
+        err = (x - y).abs().max().item()
+        worst = max(worst, err)
+        if not err <= 1e-5 * max(1e-6, y.abs().max().item()):
+            raise AssertionError(f"fused_sa_bwd_finish: dW / db max |diff| {err} vs the plain sum")
+    emit({"check": "fused_sa_bwd_finish", "rows": part.shape[0], "da_exponent": int(da_exp.item()),
+          "max_abs_err": worst, "da_bit_equal": True})
+    return worst
+
+
+def check_winner_grads_repeat(sa_op, jstar, g, what):
+    """B5's backward (the float32 MLP at the winners, then the gather
+    backward's scatter) twice on the same operands: bit-equal.  Runs with
+    autograd, outside inference mode, on copies of the operands."""
+    from deepclr_tpu_torch.ops import fused_sa
+
+    with torch.inference_mode(False):
+        op = sa_op._replace(a=sa_op.a.clone(), bc=sa_op.bc.clone(), tail_w=[w.clone() for w in sa_op.tail_w],
+                            tail_b=[x.clone() for x in sa_op.tail_b])
+        js, gg = jstar.clone(), g.clone()
+        check_repeat(f"B5 backward (_winner_grads) {what}", fused_sa._winner_grads(op, js, gg),
+                     fused_sa._winner_grads(op, js, gg))
+
+
+def gather_bwd_operands(dev, b=TRAIN_BATCH, p=1024, k=20, c=128, seed=6):
+    """MotionEmbedding's gather at the train path's shapes: B pairs, P
+    template centres, k neighbours among P source centres, the layer-1 width
+    of the flagship's embedding (128); the cotangent of the gathered rows."""
+    gen = torch.Generator().manual_seed(seed)
+    idx = torch.randint(0, p, (b, p * k), generator=gen).to(dev)
+    g = torch.randn(b, p * k, c, generator=gen).to(dev)
+    return g, idx, p
+
+
+def check_gather_bwd(dev):
+    """The gather backward's kernel at MotionEmbedding's train shape:
+    twice bit-equal, equal to the CPU's sequential scatter_add bit for bit
+    (both add in ascending order), and within 1e-5 of the scale of the
+    card's own scatter_add (atomics).  Returns the largest absolute error
+    against the card's scatter_add."""
+    from deepclr_tpu_torch.ops import grouping
+
+    g, idx, n = gather_bwd_operands(dev)
+    got = grouping.gather_points_grad(g, idx, n)
+    check_repeat(f"gather_bwd {tuple(g.shape)} -> {n} rows", got, grouping.gather_points_grad(g, idx, n))
+    cpu = grouping.gather_points_grad(g.cpu(), idx.cpu(), n)
+    ref = grouping._gather_points_grad_plain(g, idx, n)
+    err = (got - ref).abs().max().item()
+    scale = ref.abs().max().item()
+    emit({"check": "gather_bwd", "shape": list(g.shape), "rows": n, "equal_to_cpu": bool(torch.equal(got.cpu(), cpu)),
+          "max_abs_err_vs_card_scatter_add": err, "scale": scale, "tolerance": 1e-5 * scale})
+    if not torch.equal(got.cpu(), cpu) or not err <= 1e-5 * scale:
+        raise AssertionError(f"gather_bwd: differs from the CPU's scatter_add or by {err} from the card's")
+    return err
 
 
 def check_fps(dev):
@@ -524,6 +642,9 @@ def check_bwd_dense(model, dev, dtype):
         worst = max(worst, err)
         if not err <= 1e-4 * scale:
             raise AssertionError(f"fused_sa_bwd dense {dtype} {name}: max |diff| {err} > 1e-4 of the scale {scale}")
+    check_repeat(f"fused_sa_bwd {dtype} dense 4 x 4096", got, fused_sa.fused_sa_bwd(sa_op, active, out, g))
+    out_a, jstar = fused_sa.fused_sa_argmax(sa_op, active)
+    check_winner_grads_repeat(sa_op, jstar, g, f"{dtype} dense 4 x 4096")
     emit({"check": "fused_sa_bwd_dense", "dtype": str(dtype), "clouds": 4, "points": 4096,
           "in_radius_pairs": pairs, "in_radius_pairs_per_centre": pairs / (4 * op["npoint"]),
           "max_abs_err": worst, "tolerance_of_scale": 1e-4, "fed": "fused_sa kernel output"})
@@ -647,8 +768,34 @@ def run_train_path(dev):
     if argmax_counts["fused_sa_argmax"] < 1 or argmax_counts["fused_sa_bwd"] != 0:
         raise AssertionError(f"argmax backward: launches {argmax_counts}")
 
+    check_deterministic_micro_step(model, opt, loss_fn, metric_fns, batches[1], schedule(4))
     check_train_card_vs_cpu(dev)
     return model, opt, loss_fn, metric_fns, counts, argmax_counts, batches
+
+
+def check_deterministic_micro_step(model, opt, loss_fn, metric_fns, batch, lr):
+    """One flagship micro-step under torch.use_deterministic_algorithms(True),
+    scoped and then restored, with the cuBLAS workspace setting that mode
+    asks for: torch raises on any op of the path that has no deterministic
+    form (the hand-written kernels sum in fixed orders themselves), and it
+    must raise nothing."""
+    from deepclr_tpu_torch.engine import create_train_state, make_train_step
+
+    prev_mode, prev_cfg = torch.are_deterministic_algorithms_enabled(), os.environ.get("CUBLAS_WORKSPACE_CONFIG")
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    torch.use_deterministic_algorithms(True)
+    try:
+        metrics = make_train_step(model, opt, loss_fn, metric_fns)(create_train_state(model), batch, lr)
+        loss = float(metrics["loss"])
+    finally:
+        torch.use_deterministic_algorithms(prev_mode)
+        if prev_cfg is None:
+            os.environ.pop("CUBLAS_WORKSPACE_CONFIG", None)
+        else:
+            os.environ["CUBLAS_WORKSPACE_CONFIG"] = prev_cfg
+    emit({"check": "deterministic_algorithms_micro_step", "raised": False, "loss": loss})
+    if not np.isfinite(loss):
+        raise AssertionError(f"deterministic-algorithms micro-step: loss {loss}")
 
 
 def check_train_card_vs_cpu(dev, tol=2e-3, fused=True):
@@ -837,6 +984,8 @@ def time_train(dev, model, opt, loss_fn, metric_fns, batches):
             device_ms=device_ms(lambda: fused_sa.fused_sa_bwd(sa_op, active, out, g), 50),
             plain_ms=cuda_ms(lambda: fused_sa._fused_sa_bwd_plain(sa_op, out, g), reps=3),
             bound=bwd_bound(sa_op, active, out, g, pairs, points_hit)),
+        "fused_sa_bwd_finish": finish_timing(sa_op, active, out, g),
+        "gather_bwd": gather_bwd_timing(dev),
     }
     dense = bwd_dense_timing(model, dev)
     metrics = {"train_micro_step_ms": micro_ms, "train_micro_step_ms_each": times, "bwd_dense": dense,
@@ -861,6 +1010,41 @@ def bwd_bound(sa_op, active, out, g, pairs, points_hit):
     p = out.shape[1]
     dw_bytes = 4 * sum(w.numel() for w in (*sa_op.tail_w, *sa_op.tail_b))  # float32 dW and db
     return bound(byts + nbytes(out, g) + b * n * h1 * 4 + b * p * h1 * 4 + dw_bytes, f32_ops, 3.0 * cd_ops)
+
+
+def finish_timing(sa_op, active, out, g):
+    """B4's second launch on B4's own workspace at the train path's shapes:
+    its time, its plain twin's, and its bound (the workspace rows and the
+    int64 da read once, da and the dW / db sums written once)."""
+    from deepclr_tpu_torch.ops import fused_sa
+
+    _, part, da_fx, da_exp = fused_sa._bwd_first_launch(sa_op, active, out, g, fused_sa.KERNEL_WIDTHS)
+    return dict(
+        ms=kernel_ms(lambda: fused_sa.fused_sa_bwd_finish(part, da_fx, da_exp), 50),
+        device_ms=device_ms(lambda: fused_sa.fused_sa_bwd_finish(part, da_fx, da_exp), 50),
+        plain_ms=cuda_ms(lambda: fused_sa._fused_sa_bwd_finish_plain(part, da_fx, da_exp), reps=5),
+        bound=bound(nbytes(part, da_fx, da_exp) + da_fx.numel() * 4 + fused_sa.PART_WIDTH * 4,
+                    float(part.numel() + da_fx.numel())),
+        library_ms=None, rows=part.shape[0])
+
+
+def gather_bwd_timing(dev):
+    """The gather backward at MotionEmbedding's train shape: the wrapper
+    (stable sort, CSR offsets, the kernel), its plain twin (scatter_add_),
+    one library call of the same sum (index_add_ over the flattened rows),
+    and its bound (g and the indices read once, the rows written once)."""
+    from deepclr_tpu_torch.ops import grouping
+
+    g, idx, n = gather_bwd_operands(dev)
+    b, m, c = g.shape
+    flat_idx = (idx + torch.arange(b, device=dev)[:, None] * n).reshape(-1)
+    flat_g = g.reshape(-1, c)
+    return dict(
+        ms=kernel_ms(lambda: grouping.gather_points_grad(g, idx, n), 50),
+        device_ms=device_ms(lambda: grouping.gather_points_grad(g, idx, n), 50),
+        plain_ms=cuda_ms(lambda: grouping._gather_points_grad_plain(g, idx, n), reps=5),
+        library_ms=cuda_ms(lambda: torch.zeros(b * n, c, device=dev).index_add_(0, flat_idx, flat_g), reps=5),
+        bound=bound(nbytes(g, idx) + b * n * c * 4, float(b * m * c)), shape=[b, m, n, c])
 
 
 def bwd_dense_timing(model, dev):
@@ -2211,16 +2395,16 @@ def write_dp_packs(tmp, ranks=DP_RANKS):
     return time.perf_counter() - t0
 
 
-def dp_yaml(tmp, name, batch_size, micro_steps=DP_MICRO_STEPS):
+def dp_yaml(tmp, name, batch_size, micro_steps=DP_MICRO_STEPS, lr=DP_LR):
     """A YAML that extends the shipped kitti_base.yaml (no augmentation
     transforms) with phase 11's packs, float32, ``micro_steps`` micro-steps,
-    a constant lr of DP_LR in place of the schedule (whose 1e-7 start would
+    a constant lr (DP_LR) in place of the schedule (whose 1e-7 start would
     leave two updates too small to show an error in the gradients; from
-    1e-4 up the loss climbs after the first update, and two runs without a
-    group no longer agree within the validation gate, because B4's float
-    atomics change which neighbour wins a max in the second backward), loader
-    workers off (their order is not fixed) and validation once, after the
-    final checkpoint."""
+    1e-4 up the flagship's loss climbs after the first update, and two
+    ranks, which sum the global batch in another order than one process,
+    no longer agree with it within the validation gate), loader workers off
+    (their order is not fixed) and validation once, after the final
+    checkpoint."""
     import yaml
 
     path = osp.join(tmp, f"{name}.yaml")
@@ -2230,7 +2414,7 @@ def dp_yaml(tmp, name, batch_size, micro_steps=DP_MICRO_STEPS):
                                  "dataset_type": "kitti_odometry_velodyne", "sequential": True},
                         "data_loader": {"batch_size": batch_size, "num_workers": 0, "buffer_size": 0},
                         "model": {"params": {"compute_dtype": "float32"}},
-                        "optimizer": {"max_iterations": micro_steps, "base_lr": DP_LR},
+                        "optimizer": {"max_iterations": micro_steps, "base_lr": lr},
                         "scheduler": {"name": None, "params": {}, "on_iteration": False},
                         "logging": {"summary_period": 1, "log_period": 1, "checkpoint_period": 10**6,
                                     "validation_period": 10**6}}, f)
@@ -2282,11 +2466,28 @@ def dp_train_in_process(path, nccl, micro_steps=DP_MICRO_STEPS):
             state = trainer.train(cfg)
         torch.cuda.synchronize()
         counts = ops.launch_counts()
+        probe.flag_ms = interrupt_flag_ms(torch.device("cuda")) if nccl else None
     finally:
         parallel.shutdown()
     if state.step != micro_steps:
         raise AssertionError(f"{path}: {state.step} micro-steps")
     return probe, counts, *read_run(cfg.base_dir, micro_steps)
+
+
+def interrupt_flag_ms(device):
+    """Host time of one end-of-iteration interrupt agreement of the trainer
+    (parallel.any_over_processes: a one-element MAX all-reduce and the host
+    read of its result), the median of INTERRUPT_FLAG_CALLS calls after a
+    warm-up call; every rank of the group calls it as often."""
+    from deepclr_tpu_torch import parallel
+
+    parallel.any_over_processes(False, device)
+    times = []
+    for _ in range(INTERRUPT_FLAG_CALLS):
+        t0 = time.perf_counter()
+        parallel.any_over_processes(False, device)
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
 
 
 def rel_err(a, b):
@@ -2315,6 +2516,19 @@ def weights_rel_err(a, b):
     return diff / max(scale, 1e-30), {"tensor": worst, "rel_err_own_scale": own[worst]}
 
 
+def bit_equal_runs(a, b, micro_steps):
+    """Two runs' (scalars, final weights) without a group: raise unless
+    their train/loss_fn trajectories and every weight are equal bit for bit."""
+    (sa, wa), (sb, wb) = a, b
+    differ = sorted(k for k in wb if not torch.equal(wa[k], wb[k]))
+    out = {"micro_steps": micro_steps, "loss_fn": sa["train/loss_fn"], "loss_fn_equal":
+           sa["train/loss_fn"] == sb["train/loss_fn"], "weights_differing": differ,
+           "weights_rel_err": weights_rel_err(wa, wb)[0]}
+    if differ or not out["loss_fn_equal"] or len(sa["train/loss_fn"]) != micro_steps:
+        raise AssertionError(f"two identical runs without a group differ: {out}")
+    return out
+
+
 def micro_step_ms(step_ms):
     """Medians over the micro-steps after the first update (the warm-up) of
     accumulation 2: the local (no_sync) micro-steps, the all-reducing ones
@@ -2334,9 +2548,11 @@ def dp_rank_main(path, out_dir):
     from deepclr_tpu_torch import ops, parallel, training
 
     rank = int(os.environ.get("DEEPCLR_PROCESS_ID", os.environ.get("RANK", "0")))
+    flag_ms = None
     if "DEEPCLR_COORDINATOR" in os.environ:
         parallel.initialize(os.environ["DEEPCLR_COORDINATOR"], int(os.environ["DEEPCLR_NUM_PROCESSES"]), rank,
                             [int(os.environ["DEEPCLR_LOCAL_DEVICE_IDS"])], backend="gloo")
+        flag_ms = interrupt_flag_ms(parallel.local_device())
     ops.reset_launch_counts()
     with TrainerProbe() as probe:
         training.main([path])
@@ -2345,6 +2561,7 @@ def dp_rank_main(path, out_dir):
     with open(osp.join(out_dir, f"rank{rank}.json"), "w") as f:
         json.dump({"rank": rank, "wrapper": type(ddp).__name__,
                    "step_ms": probe.step_ms, "step_launches": probe.step_launches, "launches": ops.launch_counts(),
+                   "interrupt_flag_ms": flag_ms,
                    "grad_bytes": sum(p.numel() * p.element_size() for p in ddp.parameters() if p.requires_grad)}, f)
     return 0
 
@@ -2459,8 +2676,14 @@ def run_data_parallel_phase(card):
                     "weights": weights_err, "weights_worst": weights_worst,
                     "weights_bit_equal": all(torch.equal(dp_weights[k], v) for k, v in plain_weights.items())}
         if len(dp_scalars["train/loss_fn"]) != DP_MICRO_STEPS or max(one_rank["loss_fn"], one_rank["weights"]) > \
-                DP_ONE_RANK_TOL:
+                DP_ONE_RANK_TOL or not one_rank["weights_bit_equal"]:
             raise AssertionError(f"one-rank NCCL group against no group: {one_rank}")
+        # two runs without a group at the lr that exposed float-atomic drift:
+        # the same losses and weights bit for bit (phase 11's timing runs
+        # give the same at DP_LR, 12 micro-steps)
+        high = [dp_train_in_process(dp_yaml(tmp, f"high{i}", TRAIN_BATCH, lr=DP_HIGH_LR), nccl=False)
+                for i in range(2)]
+        repeat = {"lr_1e-3": bit_equal_runs(high[0][2:], high[1][2:], DP_MICRO_STEPS)}
 
         # (b) two gloo ranks of TRAIN_BATCH pairs against one process of the global batch
         global_yaml = dp_yaml(tmp, "global", DP_RANKS * TRAIN_BATCH)
@@ -2474,20 +2697,22 @@ def run_data_parallel_phase(card):
         # timing: DP_TIMING_STEPS micro-steps a run, no group and the one-rank
         # group in turns (plain, group, group, plain), then two gloo ranks;
         # the two runs without a group also give the run-to-run spread
-        timed, no_group_weights = {"no_group": [], "ddp_nccl_1_rank": []}, []
+        timed, no_group_runs, flag_ms = {"no_group": [], "ddp_nccl_1_rank": []}, [], {"nccl_1_rank": []}
         for i, nccl in enumerate((False, True, True, False)):
-            probe, _, _, weights = dp_train_in_process(dp_yaml(tmp, f"time{i}", TRAIN_BATCH, DP_TIMING_STEPS), nccl,
-                                                       DP_TIMING_STEPS)
+            probe, _, scalars, weights = dp_train_in_process(dp_yaml(tmp, f"time{i}", TRAIN_BATCH, DP_TIMING_STEPS),
+                                                             nccl, DP_TIMING_STEPS)
             timed["ddp_nccl_1_rank" if nccl else "no_group"].append(probe.step_ms)
-            if not nccl:
-                no_group_weights.append(weights)
+            if nccl:
+                flag_ms["nccl_1_rank"].append(probe.flag_ms)
+            else:
+                no_group_runs.append((scalars, weights))
         timed_ranks = run_gloo_ranks(dp_yaml(tmp, "gloo_time", TRAIN_BATCH, DP_TIMING_STEPS), tmp)
         for r in timed_ranks:
             timed[f"gloo_rank_{r['rank']}"] = [r["step_ms"]]
+        flag_ms["gloo_2_ranks_one_card"] = [r["interrupt_flag_ms"] for r in (*ranks, *timed_ranks)]
         grad_bytes = sum(p.numel() * p.element_size() for p in ddp.parameters() if p.requires_grad)
-        spread, spread_worst = weights_rel_err(*no_group_weights)
-        emit({"no_group_run_to_run": {"weights": spread, "weights_worst": spread_worst,
-                                      "micro_steps": DP_TIMING_STEPS, "lr": DP_LR}})
+        repeat[f"lr_{DP_LR}"] = bit_equal_runs(*no_group_runs, DP_TIMING_STEPS)
+        emit({"check": "no_group_run_to_run_bit_equal", "runs": repeat})
         emit({"data_parallel_timing": {
             "micro_step_ms": {k: [micro_step_ms(run) for run in runs] for k, runs in timed.items()},
             "micro_step_ms_each": timed, "micro_steps_a_run": DP_TIMING_STEPS,
@@ -2495,9 +2720,163 @@ def run_data_parallel_phase(card):
             "parameters": sum(p.numel() for p in ddp.parameters()),
             "launches_per_dp_micro_step": dp_probe.step_launches,
             "launches_per_gloo_micro_step": [r["step_launches"] for r in ranks],
-            "packs_s": packs_s}, "card": card})
+            "interrupt_flag_all_reduce_ms": flag_ms, "packs_s": packs_s}, "card": card})
     emit({"phase": "data_parallel", "seconds": time.perf_counter() - start})
     return dp_probe.step_launches
+
+
+CLI_FRAMES = 7                # frames a raw KITTI sequence: 6 pairs, so 00 and 01 hold 2 micro-steps of 5
+CLI_KITTI_ARGS = ["--sequences", "00,01,04", "--frames", str(CLI_FRAMES), "--points", "32768"]  # 16384 converted
+# 2100 points a model: just above the converter's 2048-point host FPS, whose time grows with the points
+CLI_MODELNET_ARGS = ["--train-per-shape", "1", "--test-per-shape", "1", "--points", "2100"]
+CLI_KITTI_FRAMES = 6          # frames the KITTI example registers (5 predictions)
+CLI_MODELNET_SAMPLES = 3
+
+
+def run_cli(module, argv, env):
+    """``python -m module argv`` in this process: its main() with sys.argv
+    and the environment set for the call; returns what it printed."""
+    import importlib
+    import io
+
+    saved_argv, saved_env = sys.argv, {k: os.environ.get(k) for k in env}
+    sys.argv = [module, *argv]
+    os.environ.update(env)
+    try:
+        with contextlib.redirect_stdout(io.StringIO()) as printed:
+            importlib.import_module(module).main()
+    finally:
+        sys.argv = saved_argv
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    return printed.getvalue()
+
+
+def count_samples(dataset_type, path):
+    from deepclr_tpu_torch.data import DatasetType, create_input_dataflow
+
+    samples = list(create_input_dataflow(DatasetType(dataset_type), path))
+    if not samples or not all(np.isfinite(s["clouds"][0]).all() and np.isfinite(s["transform"]).all()
+                              for s in samples):
+        raise AssertionError(f"{path}: no samples, or a non-finite cloud or label")
+    return len(samples), samples[0]["clouds"][0].shape
+
+
+def printed_errors(text, want):
+    """The translation errors an example printed: ``want`` of them, finite."""
+    errs = [float(line.split("translation error ")[1].split()[0]) for line in text.splitlines()
+            if "translation error" in line]
+    if len(errs) != want or not np.isfinite(errs).all():
+        raise AssertionError(f"expected {want} finite translation errors, got {errs}")
+    return errs
+
+
+def run_cli_phase(dev):
+    """Phase 12: the data CLIs and the inference examples, each through its
+    main() as ``python -m`` runs it, in a temporary directory: synthetic raw
+    KITTI and ModelNet40 layouts, every converter on them (each pack read
+    back by the dataflow), a 2-micro-step training run of the shipped
+    synthetic-KITTI YAML from the converted packs, both examples on the
+    card (the KITTI one with that run's weights, the ModelNet40 one from
+    seed 0) with fps, min_d2 and fused_sa launched, and the pose export."""
+    import yaml
+
+    from deepclr_tpu_torch import ops
+    from deepclr_tpu_torch.evaluation import Evaluator
+
+    start = time.perf_counter()
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        kitti, modelnet, models = osp.join(tmp, "kitti"), osp.join(tmp, "modelnet40"), osp.join(tmp, "models")
+        t0 = time.perf_counter()
+        run_cli("deepclr_tpu_torch.make_synthetic_kitti", [kitti, *CLI_KITTI_ARGS], {})
+        run_cli("deepclr_tpu_torch.make_synthetic_modelnet", [modelnet, *CLI_MODELNET_ARGS], {})
+        out["synthetic_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        for name in ("kitti_odometry", "kitti_pairs", "kitti_pairs_test"):
+            run_cli(f"deepclr_tpu_torch.converter.{name}", [], {"KITTI_PATH": kitti})
+        for name in ("modelnet40", "modelnet40_test"):
+            run_cli(f"deepclr_tpu_torch.converter.{name}", [], {"MODELNET40_PATH": modelnet})
+        out["converters_s"] = time.perf_counter() - t0
+        packs = {"odometry/00": count_samples("kitti_odometry_velodyne", osp.join(kitti, "odometry", "00.pack")),
+                 "odometry/04": count_samples("kitti_odometry_velodyne", osp.join(kitti, "odometry", "04.pack")),
+                 "pairs/00": count_samples("generic", osp.join(kitti, "pairs", "00.pack")),
+                 "pairs_test/00": count_samples("generic", osp.join(kitti, "pairs_test", "00.pack")),
+                 "models/train": count_samples("modelnet40", osp.join(modelnet, "models", "train.pack")),
+                 "test/test_unseen_0.10": count_samples("generic", osp.join(modelnet, "test",
+                                                                               "test_unseen_0.10.pack"))}
+        n_test = len(os.listdir(osp.join(modelnet, "test")))
+        if packs["odometry/00"][0] != CLI_FRAMES - 1 or packs["odometry/00"][1][1] != 4 \
+                or packs["models/train"][1][0] != MN_POINTS \
+                or n_test != 22 \
+                or packs["pairs/00"][0] != packs["pairs_test/00"][0]:
+            raise AssertionError(f"converted packs: {packs}, {n_test} ModelNet40 test packs")
+        out["packs"] = {k: [n, list(shape)] for k, (n, shape) in packs.items()}
+
+        # two micro-steps of the shipped synthetic-KITTI recipe from the converted packs
+        env = {"KITTI_PATH": kitti, "MODEL_PATH": models}
+        saved = {k: os.environ.get(k) for k in env}
+        os.environ.update(env)
+        try:
+            cfg, _, _, counts, train_s = train_from_yaml(tmp, "cli_kitti", KITTI_YAML, 2)
+        finally:
+            for k, v in saved.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+        # (the 7 m validation drive is shorter than KITTI's shortest segment: no segment errors)
+        out["training"] = {"tags": check_run_dir(cfg, "cli_kitti", 2, sequential=False), "launches": counts,
+                           "train_s": train_s}
+
+        # the examples on the card: the trained run directory, and a ModelNet40 model from seed 0
+        os.makedirs(osp.join(models, "modelnet40_seed0"), exist_ok=True)
+        with open(osp.join(models, "modelnet40_seed0", "model_config.yaml"), "w") as f:
+            yaml.safe_dump(modelnet_model_cfg(), f)
+        runs = {"kitti_inference": (["--sequence", "04", "--num_frames", str(CLI_KITTI_FRAMES)],
+                                    {"KITTI_PATH": kitti, "MODEL_PATH": osp.dirname(cfg.output_dir)},
+                                    osp.basename(cfg.output_dir), CLI_KITTI_FRAMES - 1),
+                "modelnet40_inference": (["--num_samples", str(CLI_MODELNET_SAMPLES)],
+                                         {"MODELNET40_PATH": modelnet, "MODEL_PATH": models}, "modelnet40_seed0",
+                                         CLI_MODELNET_SAMPLES)}
+        for name, (argv, env, model_name, want) in runs.items():
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            printed = run_cli(f"deepclr_tpu_torch.examples.{name}", [model_name, *argv], env)
+            torch.cuda.synchronize()
+            counts = ops.launch_counts()
+            missing = [k for k in SERVING_KERNELS if counts[k] < 1]
+            if missing or counts["fused_sa_bwd"]:
+                raise AssertionError(f"{name}: launches {counts}")
+            out[name] = {"translation_errors_m": printed_errors(printed, want), "launches": counts,
+                         "seconds": time.perf_counter() - t0}
+
+        # the pose export: ground truth with a drift as predictions of sequence 04
+        rng = np.random.default_rng(12)
+        poses = np.loadtxt(osp.join(kitti, "original", "poses", "04.txt")).reshape(-1, 3, 4)
+        ev = Evaluator()
+        for i in range(1, len(poses)):
+            prev, cur = np.eye(4), np.eye(4)
+            prev[:3], cur[:3] = poses[i - 1], poses[i]
+            step = np.linalg.inv(prev) @ cur
+            pred = step.copy()
+            pred[:3, 3] += rng.normal(scale=0.01, size=3)
+            ev.add_transforms("04", 0.1 * i, pred, step)
+        pred_dir = osp.join(tmp, "predictions")
+        ev.write(pred_dir)
+        run_cli("deepclr_tpu_torch.export_kitti_poses", [pred_dir], {"KITTI_PATH": kitti})
+        exported = np.loadtxt(osp.join(pred_dir, "kitti", "04.txt"))
+        want = np.stack([p[:3].reshape(12) for p in Evaluator.read(pred_dir).get_sequence("04").prediction.poses])
+        # calib.txt's Tr is the identity: the cam0 poses are the velodyne ones
+        if exported.shape != want.shape or not np.allclose(exported, want, atol=1e-9):
+            raise AssertionError(f"export_kitti_poses: {exported.shape} rows against {want.shape}")
+        out["export_kitti_poses_rows"] = len(exported)
+    out["seconds"] = time.perf_counter() - start
+    emit({"check": "cli", **out})
+    emit({"phase": "cli", "seconds": out["seconds"]})
 
 
 def run_torchrun_ranks(path, out_dir, n):
@@ -2590,18 +2969,19 @@ def main():
         run_icp_phase(dev, card, {"deepclr_phase7": deepclr_run, "deepclr_phase8_04": trained_run})
     run_variants_phase(model, dev, card, metrics["forward_pairs_per_s"], raycast)
     dp_launches = run_data_parallel_phase(card)
+    run_cli_phase(dev)
     launches = {**{k: serve_counts[k] for k in SERVING_KERNELS},
-                "fused_sa_bwd": train_counts["fused_sa_bwd"],
+                **{k: train_counts[k] for k in ("fused_sa_bwd", *OWN_KERNELS)},
                 "fused_sa_argmax": argmax_counts["fused_sa_argmax"]}
     rows = []
-    for name, (source, replaces) in TPU_KERNELS.items():
+    for name, (source, replaces) in {**TPU_KERNELS, **OWN_KERNELS}.items():
         k = kernels[name]
         bound_ms, bound_by = k["bound"]
         rows.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
                      "launches": launches[name], "max_abs_err": errs[name], "ms": k["ms"],
                      "plain_ms": k["plain_ms"], "bound_ms": bound_ms, "bound_by": bound_by,
-                     "library_ms": None, "device_ms": k["device_ms"],
-                     "launches_dp_micro_step": dp_launches[-1].get(name, 0),
+                     "library_ms": k.get("library_ms"), "device_ms": k["device_ms"],
+                     "launches_dp_micro_step": dp_launches[-1].get(name, 0), "own": name in OWN_KERNELS,
                      **({"bound_issue_ms": k["bound_issue_ms"]} if "bound_issue_ms" in k else {})})
     emit({"launches_train_path_4_micro_steps": train_counts})
     emit({"kernels": rows})

@@ -9,7 +9,10 @@
 //   the Pallas TPU kernel behind ball_mlp_max_pallas;
 // * fused_sa_kernel<..., ARGMAX = true>: _make_kernel(with_argmax=True),
 //   behind ball_mlp_max_pallas_argmax;
-// * fused_sa_bwd_kernel: _make_bwd_kernel, behind ball_mlp_max_bwd_pallas.
+// * fused_sa_bwd_kernel: _make_bwd_kernel, behind ball_mlp_max_bwd_pallas,
+//   with fused_sa_bwd_finish_kernel, the port's own second launch that sums
+//   its per-block dW / db rows in a fixed order and converts its
+//   fixed-point da (the design note above fused_sa_bwd_kernel).
 // All three live in this one source and run every pair's MLP through one
 // function, pair_recompute, so the backward's recompute equals the
 // forward bit for bit by construction; the library hash of ops/_cuda.py
@@ -494,63 +497,124 @@ fused_sa_kernel(const float4* __restrict__ pts, const float* __restrict__ a,
 //   * no global load waits on the chain: the tile's out and g rows are
 //     staged in shared memory once, and each warp loads its next pair's
 //     point term a_j while it works on the current pair;
-//   * da goes to global atomics, summed in registers over consecutive pairs
-//     of one point (the list holds a point's centres together); dbc to
-//     shared atomics (the block owns its tile); db to per-lane registers.
+//   * da is summed in registers over consecutive pairs of one point (the
+//     list holds a point's centres together); dbc goes to the warp's own
+//     shared row, db to per-lane registers.
 // After each round the block reduces dW3 += h2^T d3 and dW2 += h1^T d2 over
 // the round's staged rows.  In the bf16 instantiation the staged operands
 // are exact bf16 values, so the sums are mma.sync.m16n8k16 bf16 -> f32
 // products on the tensor cores (24 tiles of 16 x 8, six a warp, two k-steps
 // a round), the product the TPU kernel takes with its matmul.  The float32
 // instantiation sums on the CUDA cores, each thread the entries it owns
-// (TF32 would round the inputs).  At the end, one global atomicAdd per
-// nonzero dW and db entry and block.  The atomics make the float32
-// summation order vary from run to run.
+// (TF32 would round the inputs).
 //
-// Measured (chip_smoke.py, back-to-back launches, NVIDIA H100 80GB HBM3,
-// 700 W), bf16 at 10 clouds x 16384 -> 1024: 0.19 ms on the synthetic
-// clouds (~1.2 points a 1 m ball), 2.1 ms on a dense cube (~190 points a
-// 1 m ball).
+// Determinism: two launches on the same operands give the same bits in
+// every output, as the TPU kernel does (its grid runs in order and it sums
+// its centre splits in a fixed order).  No float sum depends on which
+// block or warp finishes first:
+//   * the pair list is built as B2 builds its own: per (pass, warp) hit
+//     counts, a scan in that order, ballot ranks.  It holds a chunk's pairs
+//     in ascending q = t + 16 i (point-major), a function of the inputs
+//     alone, and rounds and warp runs cut it by position;
+//   * dbc and db: one shared row a warp, summed in warp order at the end;
+//   * dW and db across blocks: each block stores all its partial sums
+//     (kPartWidth = 3168 floats) in its own row of a workspace (B x tiles
+//     rows: 8.1 MB at 10 clouds x 1024 centres), and a second launch,
+//     fused_sa_bwd_finish, sums the rows in block order: thread (segment s,
+//     column) takes rows s, s + 8, s + 16, ... in order, then the eight
+//     segment sums add in order;
+//   * da, which every tile whose balls hold a point adds into: int64
+//     fixed-point atomics, order-free because integer addition is
+//     associative.  The values are integer multiples of 2^-S, S = 62 - e,
+//     where 2^e exceeds 1.01 P G and G = max row sum |W2| x max row sum |W3|
+//     x max |g| (the wrapper computes S on the device: da_exponent).  No pair
+//     adds more than G to a point's entry and a point has at most P pairs,
+//     so no sum leaves int64.  Each warp run's float sum is rounded to that
+//     grid once: against the exact sum of those float runs the error is at
+//     most P 2^-(S+1) <= 1.01 P^2 G 2^-62, about 2.3e-13 G at P = 1024, far
+//     below float32 rounding.  fused_sa_bwd_finish converts the integers to
+//     float32 (one rounding).  The alternative, (point, tile) partial rows
+//     summed in tile order, needs a workspace that grows with the visited
+//     blocks (1.3 GB on the dense case at 10 x 16384), where the int64 sums
+//     take twice da's bytes.
+//
+// Measured before this design (chip_smoke.py, back-to-back launches, NVIDIA
+// H100 80GB HBM3, 700 W), bf16 at 10 clouds x 16384 -> 1024: 0.19 ms on the
+// synthetic clouds (~1.2 points a 1 m ball), 2.1 ms on a dense cube (~190
+// points a 1 m ball), with float atomics for da, dW and db.
 
-constexpr int kRound = 32;  // pairs staged per round
+constexpr int kRound = 32;                  // pairs staged per round
+constexpr int kPasses = kPairs / kThreads;  // list_pairs' passes over a chunk's (point, centre) slots
 
-// Stage chunk c's points and compact its in-radius pairs (q = t + i * kTile,
-// point-major) into `list`; returns the pair count.  Call with every thread
-// of the block.
+// A block's row of the dW / db workspace: dW3 (H2 x H3), dW2 (H1 x H2),
+// db3 (H3), db2 (H2) at the compiled widths (32, 32, 64).
+constexpr int kPartDw3 = 0;
+constexpr int kPartDw2 = kPartDw3 + 32 * 64;
+constexpr int kPartDb3 = kPartDw2 + 32 * 32;
+constexpr int kPartDb2 = kPartDb3 + 64;
+constexpr int kPartWidth = kPartDb2 + 32;
+
+// Stage chunk c's points and list its in-radius pairs q = t + i * kTile in
+// ascending q (point-major) into `list`; returns the pair count.  Pass k
+// tests q = k * kThreads + tid; lane k keeps pass k's ballot, the (pass,
+// warp) counts are scanned in that order, and each hit's slot is its
+// scanned offset plus its rank in the ballot, so the order depends on the
+// inputs alone.  Call with every thread of the block.
 template <int H1, int H2, int H3>
 __device__ __forceinline__ int list_pairs(const Staging<H1, H2, H3>& s, float4* spts,
-                                          unsigned short* list, int* count,
+                                          unsigned short* list, int* cnt, int* off, int* count,
                                           const float4* __restrict__ pts, int b, int n, int j0,
                                           float r2max) {
-  const int tid = threadIdx.x, lane = tid & 31;
+  static_assert(kPasses <= 32 && kPasses * kWarps == 64,
+                "lane k keeps pass k's ballot; the scan takes two counts a lane");
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   __syncthreads();  // the previous chunk's pairs are consumed
-  const int cnt = min(kChunk, n - j0);
+  const int npts = min(kChunk, n - j0);
   for (int i = tid; i < kChunk; i += kThreads) {
     // w = BIG*invalid for real points; 1 marks a slot past the cloud
-    spts[i] = i < cnt ? pts[(size_t)b * n + j0 + i] : make_float4(0.0f, 0.0f, 0.0f, 1.0f);
+    spts[i] = i < npts ? pts[(size_t)b * n + j0 + i] : make_float4(0.0f, 0.0f, 0.0f, 1.0f);
   }
-  if (tid == 0) *count = 0;
   __syncthreads();
 
-  for (int base = 0; base < kPairs; base += kThreads) {
-    const int q = base + tid;
+  unsigned mine = 0u;
+#pragma unroll
+  for (int k = 0; k < kPasses; ++k) {
+    const int q = k * kThreads + tid;
     const float4 ct = s.cts[q % kTile], pt = spts[q / kTile];
-    const float d2 = sq_dist(pt, ct);
-    const bool hit = pt.w == 0.0f && ct.w == 0.0f && d2 < r2max;
+    const bool hit = pt.w == 0.0f && ct.w == 0.0f && sq_dist(pt, ct) < r2max;
     const unsigned ballot = __ballot_sync(kFull, hit);
-    if (ballot) {
-      const int leader = __ffs(ballot) - 1;
-      int pos = 0;
-      if (lane == leader) pos = atomicAdd(count, __popc(ballot));
-      pos = __shfl_sync(kFull, pos, leader);
-      if (hit) {
-        pos += __popc(ballot & ((1u << lane) - 1u));
-        list[pos] = (unsigned short)q;
-      }
+    if (lane == k) mine = ballot;
+  }
+  if (lane < kPasses) cnt[lane * kWarps + warp] = __popc(mine);
+  __syncthreads();
+  if (warp == 0) {  // exclusive offsets in (pass, warp) order, i.e. ascending q
+    const int v0 = cnt[2 * lane], v1 = cnt[2 * lane + 1];
+    int incl = v0 + v1;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int y = __shfl_up_sync(kFull, incl, o);
+      if (lane >= o) incl += y;
+    }
+    off[2 * lane] = incl - v0 - v1;
+    off[2 * lane + 1] = incl - v1;
+    if (lane == 31) *count = incl;
+  }
+  __syncthreads();
+  const unsigned below = (1u << lane) - 1u;
+#pragma unroll
+  for (int k = 0; k < kPasses; ++k) {
+    const unsigned bt = __shfl_sync(kFull, mine, k);
+    if ((bt >> lane) & 1u) {
+      list[off[k * kWarps + warp] + __popc(bt & below)] = (unsigned short)(k * kThreads + tid);
     }
   }
   __syncthreads();
   return *count;
+}
+
+// da += x in fixed point: x * 2^S rounded to an integer (scale = 2^S)
+__device__ __forceinline__ void add_fixed(unsigned long long* dst, float x, double scale) {
+  if (x != 0.0f) atomicAdd(dst, (unsigned long long)__double2ll_rn((double)x * scale));
 }
 
 // One round's pairs: the rounded layer inputs and rounded deltas.  Rows
@@ -625,16 +689,13 @@ struct DwSums<H1, H2, H3, false> {
     }
   }
 
-  __device__ void flush(float* dw2, float* dw3) const {
+  // every entry, into the block's workspace row
+  __device__ void store(float* dw2, float* dw3) const {
     const int tid = threadIdx.x;
 #pragma unroll
-    for (int r = 0; r < kOwn3; ++r) {
-      if (acc3[r] != 0.0f) atomicAdd(dw3 + tid + r * kThreads, acc3[r]);
-    }
+    for (int r = 0; r < kOwn3; ++r) dw3[tid + r * kThreads] = acc3[r];
 #pragma unroll
-    for (int r = 0; r < kOwn2; ++r) {
-      if (acc2[r] != 0.0f) atomicAdd(dw2 + tid + r * kThreads, acc2[r]);
-    }
+    for (int r = 0; r < kOwn2; ++r) dw2[tid + r * kThreads] = acc2[r];
   }
 };
 
@@ -693,7 +754,9 @@ struct DwSums<H1, H2, H3, true> {
     }
   }
 
-  __device__ void flush(float* dw2, float* dw3) const {
+  // every entry, into the block's workspace row: each (row, column) of
+  // dW3 and dW2 belongs to one fragment register of one lane
+  __device__ void store(float* dw2, float* dw3) const {
     const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
     const int gr = lane >> 2, tg = lane & 3;
 #pragma unroll
@@ -707,7 +770,7 @@ struct DwSums<H1, H2, H3, true> {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int row = mb + gr + 8 * (e >> 1), col = nb + 2 * tg + (e & 1);
-        if (acc[i][e] != 0.0f) atomicAdd(dw + row * ncols + col, acc[i][e]);
+        dw[row * ncols + col] = acc[i][e];
       }
     }
   }
@@ -724,9 +787,8 @@ fused_sa_bwd_kernel(const float4* __restrict__ pts, const float* __restrict__ a,
                     const float* __restrict__ w3, const float* __restrict__ b3,
                     const float* __restrict__ r2, const uint8_t* __restrict__ active,
                     const float* __restrict__ out, const float* __restrict__ g,
-                    float* __restrict__ da, float* __restrict__ dbc, float* __restrict__ dw2,
-                    float* __restrict__ db2, float* __restrict__ dw3, float* __restrict__ db3,
-                    int n, int p, float r2max) {
+                    const int* __restrict__ da_exp, unsigned long long* __restrict__ da_fx,
+                    float* __restrict__ dbc, float* __restrict__ part, int n, int p, float r2max) {
   static_assert(H1 == 32 && H2 == 32 && H3 == 64,
                 "lane c owns layer-1/2 unit c and layer-3 columns c, c + 32");
   using Rows = RoundRows<H1, H2, H3>;
@@ -734,13 +796,14 @@ fused_sa_bwd_kernel(const float4* __restrict__ pts, const float* __restrict__ a,
   __shared__ __align__(16) Staging<H1, H2, H3> s;
   __shared__ __align__(16) float4 spts[kChunk];
   __shared__ unsigned short slist[kPairs];
+  __shared__ int scnt[kPasses * kWarps], soff[kPasses * kWarps];
   __shared__ int s_count;
-  __shared__ float sdbc[kTile * (H1 + 1)];
+  __shared__ float sdbc[kWarps][kTile * (H1 + 1)];  // each warp's dbc sums
   // the weights with rows padded by one word, for the back-propagation:
   // lanes over input units read them conflict-free
   __shared__ float w2p[H1][H2 + 1];
   __shared__ float w3p[H2][H3 + 1];
-  __shared__ float sdb[H3 + H2];  // db3 then db2, summed over the block's warps
+  __shared__ float sdb[kWarps][H3 + H2];  // each warp's db3 then db2
   extern __shared__ __align__(16) unsigned char dyn_smem[];
   Rows& rows = *reinterpret_cast<Rows*>(dyn_smem);
   TileRows<H3>& tr = *reinterpret_cast<TileRows<H3>*>(dyn_smem + sizeof(Rows));
@@ -759,8 +822,9 @@ fused_sa_bwd_kernel(const float4* __restrict__ pts, const float* __restrict__ a,
     tr.out[t][i % H3] = q < p ? out[o] : 0.0f;
     tr.g[t][i % H3] = q < p ? g[o] : 0.0f;
   }
-  for (int i = tid; i < kTile * (H1 + 1); i += kThreads) sdbc[i] = 0.0f;
-  for (int i = tid; i < H3 + H2; i += kThreads) sdb[i] = 0.0f;
+  for (int i = tid; i < kWarps * kTile * (H1 + 1); i += kThreads) (&sdbc[0][0])[i] = 0.0f;
+  float* wdbc = sdbc[warp];
+  const double da_scale = ldexp(1.0, *da_exp);
   LaneWeights lw;  // this lane's recompute weights
   lw.load(w2, w3, lane);
   DwSums<H1, H2, H3, BF16> dw;
@@ -770,7 +834,7 @@ fused_sa_bwd_kernel(const float4* __restrict__ pts, const float* __restrict__ a,
   for (int c = 0; c < nc; ++c) {
     if (!act[(size_t)c * ntiles]) continue;
     const int j0 = c * kChunk;
-    const int total = list_pairs(s, spts, slist, &s_count, pts, b, n, j0, r2max);
+    const int total = list_pairs(s, spts, slist, scnt, soff, &s_count, pts, b, n, j0, r2max);
 
     for (int base = 0; base < total; base += kRound) {
       const int live = min(kRound, total - base);
@@ -845,31 +909,91 @@ fused_sa_bwd_kernel(const float4* __restrict__ pts, const float* __restrict__ a,
 
         // layer 1: the cotangents of a_j and bc_p
         if (j != cur_j) {  // warp-uniform
-          if (cur_j >= 0 && da_sum != 0.0f) atomicAdd(da + ((size_t)b * n + cur_j) * H1 + lane, da_sum);
+          if (cur_j >= 0) add_fixed(da_fx + ((size_t)b * n + cur_j) * H1 + lane, da_sum, da_scale);
           cur_j = j;
           da_sum = 0.0f;
         }
         da_sum += d0;
-        if (d0 != 0.0f) atomicAdd(sdbc + t * (H1 + 1) + lane, d0);
+        wdbc[t * (H1 + 1) + lane] += d0;
       }
-      if (cur_j >= 0 && da_sum != 0.0f) atomicAdd(da + ((size_t)b * n + cur_j) * H1 + lane, da_sum);
+      if (cur_j >= 0) add_fixed(da_fx + ((size_t)b * n + cur_j) * H1 + lane, da_sum, da_scale);
       __syncthreads();
       dw.add(rows, live);
       __syncthreads();  // the next round overwrites the staged rows
     }
   }
 
-  if (db3_lo != 0.0f) atomicAdd(sdb + lane, db3_lo);
-  if (db3_hi != 0.0f) atomicAdd(sdb + lane + 32, db3_hi);
-  if (db2_c != 0.0f) atomicAdd(sdb + H3 + lane, db2_c);
+  sdb[warp][lane] = db3_lo;
+  sdb[warp][lane + 32] = db3_hi;
+  sdb[warp][H3 + lane] = db2_c;
   __syncthreads();
 
+  // the warps' rows, summed in warp order
   for (int i = tid; i < kTile * H1; i += kThreads) {
     const int t = i / H1, k = i % H1, q = p0 + t;
-    if (q < p) dbc[((size_t)b * p + q) * H1 + k] = sdbc[t * (H1 + 1) + k];
+    float v = sdbc[0][t * (H1 + 1) + k];
+#pragma unroll
+    for (int w = 1; w < kWarps; ++w) v += sdbc[w][t * (H1 + 1) + k];
+    if (q < p) dbc[((size_t)b * p + q) * H1 + k] = v;
   }
-  dw.flush(dw2, dw3);
-  if (tid < H3 + H2 && sdb[tid] != 0.0f) atomicAdd(tid < H3 ? db3 + tid : db2 + tid - H3, sdb[tid]);
+  float* row = part + ((size_t)b * ntiles + tile) * kPartWidth;
+  dw.store(row + kPartDw2, row + kPartDw3);
+  if (tid < H3 + H2) {
+    float v = sdb[0][tid];
+#pragma unroll
+    for (int w = 1; w < kWarps; ++w) v += sdb[w][tid];
+    row[kPartDb3 + tid] = v;  // db3 then db2, as in sdb
+  }
+}
+
+// B4's second launch: dW and db summed over the workspace rows in block
+// order, and da converted from fixed point to float32.  Blocks below
+// kFinishColBlocks take 32 workspace columns each: thread (segment s, lane)
+// sums rows s, s + 8, s + 16, ... of its column in order, then segment 0
+// adds the eight segment sums in order.  The blocks above convert da,
+// grid-stride.  Bound: bytes (the workspace and the int64 da read once,
+// the float32 outputs written once).
+constexpr int kFinishThreads = 256;
+constexpr int kFinishSegs = kFinishThreads / 32;
+constexpr int kFinishColBlocks = kPartWidth / 32;
+static_assert(kPartWidth % 32 == 0, "whole warps of workspace columns");
+
+__global__ void __launch_bounds__(kFinishThreads)
+fused_sa_bwd_finish_kernel(const float* __restrict__ part, int nrows,
+                           const unsigned long long* __restrict__ da_fx,
+                           const int* __restrict__ da_exp, long long n_da, float* __restrict__ da,
+                           float* __restrict__ dw2, float* __restrict__ db2,
+                           float* __restrict__ dw3, float* __restrict__ db3) {
+  if (blockIdx.x < kFinishColBlocks) {
+    __shared__ float seg[kFinishSegs][32];
+    const int lane = threadIdx.x & 31, sg = threadIdx.x >> 5;
+    const int col = blockIdx.x * 32 + lane;
+    float acc = 0.0f;
+    for (int r = sg; r < nrows; r += kFinishSegs) acc += part[(size_t)r * kPartWidth + col];
+    seg[sg][lane] = acc;
+    __syncthreads();
+    if (sg == 0) {
+      float v = seg[0][lane];
+#pragma unroll
+      for (int k = 1; k < kFinishSegs; ++k) v += seg[k][lane];
+      if (col < kPartDw2) {
+        dw3[col - kPartDw3] = v;
+      } else if (col < kPartDb3) {
+        dw2[col - kPartDw2] = v;
+      } else if (col < kPartDb2) {
+        db3[col - kPartDb3] = v;
+      } else {
+        db2[col - kPartDb2] = v;
+      }
+    }
+    return;
+  }
+  const int ex = *da_exp;
+  const long long stride = (long long)(gridDim.x - kFinishColBlocks) * kFinishThreads;
+  for (long long i = (long long)(blockIdx.x - kFinishColBlocks) * kFinishThreads + threadIdx.x; i < n_da;
+       i += stride) {
+    da[i] = ldexpf(__ll2float_rn((long long)da_fx[i]), -ex);
+  }
 }
 
 template <int H1, int H2, int H3, bool ARGMAX>
@@ -903,7 +1027,7 @@ template <bool BF16>
 cudaError_t launch_bwd(const float4* pts, const float* a, const float* cts, const float* bc,
                        const float* w2, const float* b2, const float* w3, const float* b3,
                        const float* r2, const uint8_t* active, const float* out, const float* g,
-                       float* da, float* dbc, float* dw2, float* db2, float* dw3, float* db3, int b,
+                       const int* da_exp, unsigned long long* da_fx, float* dbc, float* part, int b,
                        int n, int p, float r2max, cudaStream_t stream) {
   const auto kernel = fused_sa_bwd_kernel<32, 32, 64, BF16>;
   const int smem = (int)(sizeof(RoundRows<32, 32, 64>) + sizeof(TileRows<64>));
@@ -911,8 +1035,8 @@ cudaError_t launch_bwd(const float4* pts, const float* a, const float* cts, cons
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((p + kTile - 1) / kTile, b);
-  kernel<<<grid, kThreads, smem, stream>>>(pts, a, cts, bc, w2, b2, w3, b3, r2, active, out, g, da,
-                                           dbc, dw2, db2, dw3, db3, n, p, r2max);
+  kernel<<<grid, kThreads, smem, stream>>>(pts, a, cts, bc, w2, b2, w3, b3, r2, active, out, g, da_exp,
+                                           da_fx, dbc, part, n, p, r2max);
   return cudaGetLastError();
 }
 
@@ -950,16 +1074,17 @@ extern "C" int deepclr_fused_sa_argmax(const float* pts, const float* a, const f
                                            jstar, b, n, p, r2max, bf16 != 0, stream);
 }
 
-// The forward's operands, plus out (B, P, H3) (the forward's own output)
-// and g (B, P, H3) its cotangent.  Writes dbc (B, P, H1) and adds into da
-// (B, N, H1), dw2 (H1, H2), db2 (H2), dw3 (H2, H3), db3 (H3), which the
-// caller zeroes.
+// The forward's operands, plus out (B, P, H3) (the forward's own output),
+// g (B, P, H3) its cotangent and da_exp (int32, one) the fixed-point
+// exponent S.  Writes dbc (B, P, H1) and part (B * ceil(P/tile),
+// kPartWidth): each block's dW3, dW2, db3 and db2 sums; adds da * 2^S into
+// da_fx (B, N, H1) int64, which the caller zeroes.
 extern "C" int deepclr_fused_sa_bwd(const float* pts, const float* a, const float* cts,
                                     const float* bc, const float* w2, const float* b2,
                                     const float* w3, const float* b3, const float* r2,
                                     const uint8_t* active, const float* out, const float* g,
-                                    float* da, float* dbc, float* dw2, float* db2, float* dw3,
-                                    float* db3, int b, int n, int p, int h1, int h2, int h3,
+                                    const int* da_exp, unsigned long long* da_fx, float* dbc,
+                                    float* part, int b, int n, int p, int h1, int h2, int h3,
                                     int chunk, int tile, float r2max, int bf16,
                                     cudaStream_t stream) {
   if (!valid_shape(b, n, p, chunk, tile) || !compiled_widths(h1, h2, h3)) {
@@ -967,9 +1092,24 @@ extern "C" int deepclr_fused_sa_bwd(const float* pts, const float* a, const floa
   }
   const float4* pts4 = reinterpret_cast<const float4*>(pts);
   if (bf16 != 0) {
-    return (int)launch_bwd<true>(pts4, a, cts, bc, w2, b2, w3, b3, r2, active, out, g, da, dbc, dw2,
-                                 db2, dw3, db3, b, n, p, r2max, stream);
+    return (int)launch_bwd<true>(pts4, a, cts, bc, w2, b2, w3, b3, r2, active, out, g, da_exp, da_fx,
+                                 dbc, part, b, n, p, r2max, stream);
   }
-  return (int)launch_bwd<false>(pts4, a, cts, bc, w2, b2, w3, b3, r2, active, out, g, da, dbc, dw2,
-                                db2, dw3, db3, b, n, p, r2max, stream);
+  return (int)launch_bwd<false>(pts4, a, cts, bc, w2, b2, w3, b3, r2, active, out, g, da_exp, da_fx,
+                                dbc, part, b, n, p, r2max, stream);
+}
+
+// B4's second launch: part (nrows, kPartWidth) summed over its rows in order
+// into dw2 (32, 32), db2 (32), dw3 (32, 64), db3 (64); da_fx (n_da int64)
+// times 2^-S into da (n_da float32).
+extern "C" int deepclr_fused_sa_bwd_finish(const float* part, int nrows,
+                                           const unsigned long long* da_fx, const int* da_exp,
+                                           long long n_da, float* da, float* dw2, float* db2,
+                                           float* dw3, float* db3, cudaStream_t stream) {
+  if (nrows <= 0 || n_da < 0) return (int)cudaErrorInvalidValue;
+  const long long da_blocks = (n_da + kFinishThreads - 1) / kFinishThreads;
+  const int grid = kFinishColBlocks + (int)(da_blocks < 4096 ? (da_blocks > 0 ? da_blocks : 1) : 4096);
+  fused_sa_bwd_finish_kernel<<<grid, kFinishThreads, 0, stream>>>(part, nrows, da_fx, da_exp, n_da, da,
+                                                                  dw2, db2, dw3, db3);
+  return (int)cudaGetLastError();
 }

@@ -43,9 +43,9 @@ from ..evaluation import Evaluator
 from ..losses import make_loss_fn, make_metric_fns
 from ..models import build_model
 from ..models.deepclr import OutputSimple
-from ..parallel import (allgather_host, allgather_host_f64, allgather_host_strings, initialized, is_primary,
-                        local_device, mean_over_processes, process_count, process_index, set_process_group,
-                        wrap_data_parallel)
+from ..parallel import (allgather_host, allgather_host_f64, allgather_host_strings, any_over_processes, initialized,
+                        is_primary, local_device, mean_over_processes, process_count, process_index,
+                        set_process_group, wrap_data_parallel)
 from ..solver import make_optimizer, make_schedule
 from ..utils.logging import create_logger, create_summary_writer
 from .checkpoint import Checkpointer, load_checkpoint
@@ -71,8 +71,14 @@ _shutdown = threading.Event()
 # checkpoint records.  While _defer_depth > 0 the SIGINT handler records the
 # signal instead of raising; _defer_interrupt re-raises it when the
 # iteration's block ends, between two whole iterations.
+#
+# Under a process group of more than one rank an interrupt must stop every
+# rank at the same iteration: the ranks then agree on it (run_trainer ends
+# each iteration with a MAX all-reduce of the pending flag) and the handler
+# only records the signal, wherever it lands in the loop.
 _defer_depth = 0
 _interrupt_pending = False
+_group_agrees = False
 
 
 @contextmanager
@@ -85,7 +91,7 @@ def _defer_interrupt():
         _defer_depth -= 1
     # reached only when the block ends normally (or by break): an exception
     # from the block propagates as it is
-    if _interrupt_pending and _defer_depth == 0:
+    if _interrupt_pending and _defer_depth == 0 and not _group_agrees:
         _interrupt_pending = False
         raise KeyboardInterrupt
 
@@ -96,7 +102,7 @@ def _sigint_handler(signum, frame):
     if _shutdown.is_set():
         print("SIGINT ignored: training state already persisted / shutdown in progress", flush=True)
         return
-    if _defer_depth > 0:
+    if _defer_depth > 0 or _group_agrees:
         _interrupt_pending = True
         return
     raise KeyboardInterrupt
@@ -286,6 +292,18 @@ def train(cfg) -> "TrainState":
                        output_dir=cfg.output_dir, checkpoint=cfg.checkpoint)
 
 
+def _interrupt_agreed(device: torch.device) -> bool:
+    """Every rank's pending interrupt, MAX-reduced over the group: True on
+    every rank when any rank was interrupted.  A signal that lands after the
+    flag was read stays pending for the next iteration."""
+    global _interrupt_pending
+    pending = _interrupt_pending
+    if not any_over_processes(pending, device):
+        return False
+    _interrupt_pending = False
+    return True
+
+
 def _average_gradients(model: nn.Module) -> None:
     grads = [p.grad for p in model.parameters() if p.grad is not None]
     if grads:
@@ -335,8 +353,11 @@ def run_trainer(cfg: Dict[str, Any], model: nn.Module, train_loader, val_loader,
     the metric means over the processes and gathers the predictions,
     labels, names and stamps to rank 0 for the Evaluator, in the dataset's
     order.  Only rank 0 (``is_primary``) writes checkpoints and summaries.
-    SIGINT on rank 0 writes its interrupt checkpoint; the other ranks then
-    fail at their next collective, after ``parallel.distributed.TIMEOUT``.
+    With more than one rank, every iteration ends with a one-element MAX
+    all-reduce of "an interrupt is pending", so SIGINT to any rank stops
+    every rank after the same iteration; they average their gradients and
+    rank 0 writes the interrupt checkpoint, which holds the global batch's
+    partial gradient, as the JAX package's global accumulator does.
     """
     opt_cfg, log_cfg = cfg["optimizer"], cfg.get("logging") or {}
     sched_cfg = cfg.get("scheduler") or {}
@@ -456,7 +477,7 @@ def run_trainer(cfg: Dict[str, Any], model: nn.Module, train_loader, val_loader,
             writer.add_scalar("val/kitti_r_err", total_seg.mean.rotation.kitti, iteration)
 
     def save_ckpt(special: Optional[str] = None) -> None:
-        if world > 1 and special in (None, "final") and state.step % accumulation_steps:
+        if world > 1 and special in (None, "final", "interrupt") and state.step % accumulation_steps:
             # mid-update, each rank holds the gradient of its own shard:
             # store their mean, which every rank takes over (the update
             # that averages them over the ranks stays the same)
@@ -473,8 +494,10 @@ def run_trainer(cfg: Dict[str, Any], model: nn.Module, train_loader, val_loader,
     logger.info(f"Start training for {epochs} epochs ({max_iterations} iterations, {world} processes)")
     epoch = start_epoch
     _shutdown.clear()
-    global _interrupt_pending
+    global _interrupt_pending, _group_agrees
     _interrupt_pending = False
+    _group_agrees = world > 1
+    device = local_device()
     prev_sigint = install_sigint_handler()
     try:
         done = False
@@ -509,6 +532,8 @@ def run_trainer(cfg: Dict[str, Any], model: nn.Module, train_loader, val_loader,
                         save_ckpt()
                     if iteration % validation_period == 0:
                         run_validation()
+                    if _group_agrees and _interrupt_agreed(device):
+                        raise KeyboardInterrupt
                     if iteration >= max_iterations:
                         done = True
                         break
@@ -533,6 +558,7 @@ def run_trainer(cfg: Dict[str, Any], model: nn.Module, train_loader, val_loader,
         save_ckpt("exception")
         raise
     finally:
+        _group_agrees = False
         if net is not model:
             set_process_group(model, None)
         if writer is not None:

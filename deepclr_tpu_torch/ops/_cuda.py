@@ -10,8 +10,8 @@ source is rebuilt and a stale library is never loaded.
 Every C entry point launches on the stream it is given and returns
 ``cudaGetLastError()``; :class:`CudaKernel` raises when that is not 0 and
 counts the launches.  One library may carry several entry points
-(``fused_sa.cu``: the forward, its argmax variant and the backward), each a
-``CudaKernel`` with its own count.  The sources include no shared header,
+(``fused_sa.cu``: the forward, its argmax variant, the backward and its
+finishing launch), each a ``CudaKernel`` with its own count.  The sources include no shared header,
 so the hash of the one ``.cu`` file covers all the code of its library.
 """
 from __future__ import annotations
@@ -31,7 +31,7 @@ __all__ = ["CudaKernel", "build_all", "c_function", "check_cuda", "launch_counts
 _PKG = Path(__file__).resolve().parents[1]
 _CSRC = _PKG / "csrc"
 _BUILD = _PKG / "_build"
-SOURCES = ("fps", "min_d2", "fused_sa")
+SOURCES = ("fps", "min_d2", "fused_sa", "gather")
 # -fmad=false: the plain versions (and the JAX reference) round every
 # product before the add; a contracted FMA would flip FPS picks and radius
 # decisions at the boundary.  Kernels that want FMA call __fmaf_rn.

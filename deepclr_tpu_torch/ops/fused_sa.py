@@ -11,7 +11,7 @@ float32, add a float32 bias and apply ReLU.  Multi-scale bundles pass
 block-diagonal tail weights and one radius per output column, so every MSG
 scale shares one pass over the cloud.
 
-Four hand-written CUDA kernels carry the op on the card, each with a plain
+Hand-written CUDA kernels carry the op on the card, each with a plain
 PyTorch twin that a CPU tensor runs:
 
 * ``block_min_d2`` (``csrc/min_d2.cu``): the culling pre-pass, min d^2 over
@@ -22,7 +22,10 @@ PyTorch twin that a CPU tensor runs:
   (chunk, centre tile) blocks that ``cull_bitmap`` rules out;
 * ``fused_sa_argmax`` (same source): the forward plus each column's winning
   point index;
-* ``fused_sa_bwd`` (same source): the equality-select backward.
+* ``fused_sa_bwd`` (same source): the equality-select backward, two
+  launches: the kernel itself, then ``fused_sa_bwd_finish``, which sums its
+  per-block dW / db rows in block order and converts its fixed-point da.
+  Two launches on the same operands give the same bits.
 
 Distances are the dx^2 form (x - c)^2 summed x, y, z with every product
 rounded, in every kernel and twin, so culling and radius decisions agree bit
@@ -53,6 +56,7 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from ._cuda import CudaKernel, check_cuda
+from .grouping import gather_points_grad
 
 __all__ = [
     "ball_mlp_max",
@@ -62,6 +66,8 @@ __all__ = [
     "fused_sa_core",
     "fused_sa_argmax",
     "fused_sa_bwd",
+    "fused_sa_bwd_finish",
+    "da_exponent",
     "multi_scale_bundle",
     "prepare",
     "SAOperands",
@@ -69,6 +75,7 @@ __all__ = [
     "FUSED_SA_KERNEL",
     "FUSED_SA_ARGMAX_KERNEL",
     "FUSED_SA_BWD_KERNEL",
+    "FUSED_SA_BWD_FINISH_KERNEL",
     "CHUNK",
     "TILE",
     "KERNEL_WIDTHS",
@@ -80,6 +87,10 @@ CHUNK = 128       # points per culling chunk (csrc/fused_sa.cu kChunk)
 TILE = 16         # centres per block (csrc/fused_sa.cu kTile)
 KERNEL_WIDTHS = (32, 32, 64)  # (H1, H2, H3) compiled in csrc/fused_sa.cu: every shipped config
 BACKWARDS = ("kernel", "argmax")
+# a block's row of B4's dW / db workspace (csrc/fused_sa.cu kPartWidth):
+# dW3, dW2, db3, db2 at KERNEL_WIDTHS
+PART_SPLIT = (32 * 64, 32 * 32, 64, 32)
+PART_WIDTH = sum(PART_SPLIT)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -89,7 +100,10 @@ FUSED_SA_KERNEL = CudaKernel("fused_sa", "fused_sa", "deepclr_fused_sa", [_P] * 
 FUSED_SA_ARGMAX_KERNEL = CudaKernel(
     "fused_sa_argmax", "fused_sa", "deepclr_fused_sa_argmax", [_P] * 12 + [_I] * 8 + [_F, _I])
 FUSED_SA_BWD_KERNEL = CudaKernel(
-    "fused_sa_bwd", "fused_sa", "deepclr_fused_sa_bwd", [_P] * 18 + [_I] * 8 + [_F, _I])
+    "fused_sa_bwd", "fused_sa", "deepclr_fused_sa_bwd", [_P] * 16 + [_I] * 8 + [_F, _I])
+FUSED_SA_BWD_FINISH_KERNEL = CudaKernel(
+    "fused_sa_bwd_finish", "fused_sa", "deepclr_fused_sa_bwd_finish",
+    [_P, _I, _P, _P, ctypes.c_longlong] + [_P] * 5)
 
 
 def multi_scale_bundle(scale_weights, scale_biases, radii):
@@ -354,7 +368,7 @@ def _winner_grads(op: SAOperands, jstar: torch.Tensor, g: torch.Tensor):
             h = torch.relu(torch.matmul(h, w) + bias)
         y = torch.relu(torch.einsum("bpch,hc->bpc", h, ws[-1]) + bs[-1])
         grads = torch.autograd.grad(y, [a_w, bc, *ws, *bs], torch.where(valid, g, 0.0))
-    da = torch.zeros_like(op.a).scatter_add_(1, js.expand(-1, -1, h1), grads[0].reshape(b, p * h3, h1))
+    da = gather_points_grad(grads[0].reshape(b, p * h3, h1), js.view(b, p * h3), op.a.shape[1])
     n_tail = len(ws)
     return da, grads[1], list(grads[2:2 + n_tail]), list(grads[2 + n_tail:])
 
@@ -420,24 +434,73 @@ def fused_sa_argmax(op: SAOperands, active: Optional[torch.Tensor] = None):
     return out, jstar
 
 
+def da_exponent(w2: torch.Tensor, w3: torch.Tensor, g: torch.Tensor, p: int) -> torch.Tensor:
+    """S of B4's fixed-point da (csrc/fused_sa.cu's design note), an int32
+    (1,) tensor on g's device, computed there without a host sync: 62 - e,
+    where 2^e exceeds 1.01 P G and G = max row sum |W2| x max row sum |W3| x
+    max |g| bounds what one pair adds to a point (w2, w3 the rounded tail)."""
+    bound = w2.abs().sum(1).amax() * w3.abs().sum(1).amax() * g.abs().amax() * (1.01 * p)
+    return (62 - torch.frexp(bound.reshape(1)).exponent).to(torch.int32)
+
+
+def _fused_sa_bwd_finish_plain(part: torch.Tensor, da_fx: torch.Tensor, da_exp: torch.Tensor):
+    dw3, dw2, db3, db2 = part.sum(0).split(PART_SPLIT)
+    da = torch.ldexp(da_fx.double(), -da_exp.double()).float()
+    h1, h2, h3 = KERNEL_WIDTHS
+    return da, [dw2.view(h1, h2), dw3.view(h2, h3)], [db2, db3]
+
+
+def fused_sa_bwd_finish(part: torch.Tensor, da_fx: torch.Tensor, da_exp: torch.Tensor):
+    """B4's second launch -> (da float32 shaped as da_fx, [dW2, dW3], [db2,
+    db3]): ``part`` (rows, PART_WIDTH) summed over its rows in row order,
+    ``da_fx`` (int64) times 2^-S for S = ``da_exp``."""
+    if part.dim() != 2 or part.shape[1] != PART_WIDTH or da_exp.shape != (1,):
+        raise ValueError(f"fused_sa_bwd_finish: expected part (rows, {PART_WIDTH}) and da_exp (1,)")
+    if not part.is_cuda:
+        return _fused_sa_bwd_finish_plain(part, da_fx, da_exp)
+    check_cuda("fused_sa_bwd_finish", part)
+    check_cuda("fused_sa_bwd_finish", da_fx, dtype=torch.int64)
+    check_cuda("fused_sa_bwd_finish", da_exp, dtype=torch.int32)
+    h1, h2, h3 = KERNEL_WIDTHS
+    da = torch.empty(da_fx.shape, dtype=torch.float32, device=part.device)
+    dw2, dw3 = part.new_empty((h1, h2)), part.new_empty((h2, h3))
+    db2, db3 = part.new_empty((h2,)), part.new_empty((h3,))
+    FUSED_SA_BWD_FINISH_KERNEL.launch(part.device, part.data_ptr(), part.shape[0], da_fx.data_ptr(),
+                                      da_exp.data_ptr(), da_fx.numel(), da.data_ptr(), dw2.data_ptr(),
+                                      db2.data_ptr(), dw3.data_ptr(), db3.data_ptr())
+    return da, [dw2, dw3], [db2, db3]
+
+
 def fused_sa_bwd(op: SAOperands, active: Optional[torch.Tensor], out: torch.Tensor, g: torch.Tensor):
     """Equality-select backward on prepared operands -> (da (B, N, H1), dbc
     (B, P, H1), [dW2, dW3], [db2, db3]), all float32.  ``out`` must be the
-    forward's own output on the same operands, ``g`` its cotangent."""
+    forward's own output on the same operands, ``g`` its cotangent.  On the
+    card: the kernel, then ``fused_sa_bwd_finish``; bit-equal from launch to
+    launch."""
     if not op.pts4.is_cuda:
         return _fused_sa_bwd_plain(op, out, g)
     widths = _check_kernel_operands("fused_sa_bwd", op, active)
     if out.shape != (*op.bc.shape[:2], widths[-1]) or g.shape != out.shape:
         raise ValueError("fused_sa_bwd: out and g must be (B, P, H3)")
     check_cuda("fused_sa_bwd", out, g)
+    dbc, part, da_fx, da_exp = _bwd_first_launch(op, active, out, g, widths)
+    da, dw, db = fused_sa_bwd_finish(part, da_fx, da_exp)
+    return da, dbc, dw, db
+
+
+def _bwd_first_launch(op: SAOperands, active: torch.Tensor, out: torch.Tensor, g: torch.Tensor, widths):
+    """B4's first launch -> (dbc, its dW / db workspace, da in fixed point,
+    the exponent S): what ``fused_sa_bwd_finish`` takes."""
     args, (w2, w3) = _kernel_args(op, active)
-    da, dbc = torch.zeros_like(op.a), torch.empty_like(op.bc)
-    dw2, dw3 = torch.zeros_like(w2), torch.zeros_like(w3)
-    db2, db3 = (torch.zeros_like(x) for x in op.tail_b)
+    b, p = op.bc.shape[:2]
+    da_exp = da_exponent(w2, w3, g, p)
+    da_fx = torch.zeros(op.a.shape, dtype=torch.int64, device=op.a.device)
+    dbc = torch.empty_like(op.bc)
+    part = torch.empty((b * -(-p // TILE), PART_WIDTH), dtype=torch.float32, device=op.a.device)
     FUSED_SA_BWD_KERNEL.launch(
-        op.pts4.device, *args, out.data_ptr(), g.data_ptr(), da.data_ptr(), dbc.data_ptr(),
-        dw2.data_ptr(), db2.data_ptr(), dw3.data_ptr(), db3.data_ptr(), *_kernel_tail(op, widths))
-    return da, dbc, [dw2, dw3], [db2, db3]
+        op.pts4.device, *args, out.data_ptr(), g.data_ptr(), da_exp.data_ptr(), da_fx.data_ptr(),
+        dbc.data_ptr(), part.data_ptr(), *_kernel_tail(op, widths))
+    return dbc, part, da_fx, da_exp
 
 
 class _FusedSA(torch.autograd.Function):

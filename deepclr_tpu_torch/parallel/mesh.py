@@ -34,8 +34,8 @@ from ..models.deepclr import OutputSimple
 from ..models.layers import BatchNorm
 from .distributed import initialized, process_count
 
-__all__ = ["allgather_host", "allgather_host_f64", "allgather_host_strings", "mean_over_processes",
-           "set_process_group", "wrap_data_parallel"]
+__all__ = ["allgather_host", "allgather_host_f64", "allgather_host_strings", "any_over_processes",
+           "mean_over_processes", "set_process_group", "wrap_data_parallel"]
 
 
 def _allgather_objects(obj) -> List:
@@ -82,6 +82,19 @@ def mean_over_processes(t: torch.Tensor) -> torch.Tensor:
     x = t.to(torch.device("cuda", torch.cuda.current_device())) if nccl and t.device.type == "cpu" else t.clone()
     dist.all_reduce(x)
     return (x / process_count()).to(t.device)
+
+
+def any_over_processes(flag: bool, device: torch.device) -> bool:
+    """Whether ``flag`` holds on any process: a one-element MAX all-reduce
+    on ``device`` (the current CUDA device under NCCL), which every process
+    of the group must call; ``flag`` itself without a process group."""
+    if not initialized():
+        return bool(flag)
+    if dist.get_backend() == dist.Backend.NCCL:
+        device = torch.device("cuda", torch.cuda.current_device())
+    x = torch.tensor([1.0 if flag else 0.0], device=device)
+    dist.all_reduce(x, op=dist.ReduceOp.MAX)
+    return bool(x.item() > 0.0)
 
 
 def set_process_group(model: nn.Module, group) -> None:

@@ -27,8 +27,9 @@ or one process a rank with the JAX package's contract:
         [DEEPCLR_LOCAL_DEVICE_IDS=d] python -m deepclr_tpu_torch.training CONFIG.yaml
 
 (``parallel/distributed.py`` has the whole contract.)  Only rank 0 writes
-the run directory; SIGINT to rank 0 alone leaves its interrupt checkpoint
-and the other ranks fail after the process group's timeout.
+the run directory.  SIGINT to any one rank stops every rank after the same
+iteration (the ranks agree on it at the end of each iteration), and rank 0
+writes the interrupt checkpoint with the global batch's gradient.
 """
 from __future__ import annotations
 

@@ -199,8 +199,8 @@ def test_fused_sa_argmax_kernel_matches_plain(dev, n, p, dtype, tie_at_zero):
         assert (out[..., :8] == 0).all() and (jstar[:2, :, :8] >= 0).any()
 
 
-# The kernel sums dW, db, dbc and da with atomics, in an order that changes
-# from run to run; 1e-4 of each result's scale bounds that float32 spread.
+# The kernel sums dW, db and dbc in fixed orders other than the twin's, and
+# da in fixed point; 1e-4 of each result's scale bounds that float32 spread.
 # B4 is fed B2's output, so its recompute must select B2's winners; the
 # path's shape (16384 -> 1024) and dense balls included.
 @pytest.mark.parametrize("n,p,dense", [(4096, 512, False), (1000, 40, False), (4096, 512, True),
@@ -218,6 +218,52 @@ def test_fused_sa_bwd_kernel_matches_plain(dev, n, p, dense, dtype, tie_at_zero)
     assert got[2][1].abs().max() > 0 and not got[0][-1].any() and not got[1][-1].any()
     if tie_at_zero:  # relu' is 0 at a clamped value: the tied-at-0 columns give nothing
         assert not got[2][1][:, :8].any() and not got[3][1][:8].any()
+
+
+@pytest.mark.parametrize("n,p,dense", [(16384, 1024, False), (4096, 512, True)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_sa_bwd_kernel_is_bit_equal_across_launches(dev, n, p, dense, dtype):
+    """B4 (with its finishing launch) and B5's backward, twice on the same
+    operands: every output equal bit for bit."""
+    op, active = _sa_operands(n, p, dtype, 9, dev, False, dense)
+    g = torch.randn(op.bc.shape[:2] + (64,), generator=torch.Generator().manual_seed(10)).to(dev)
+    out = fused_sa.fused_sa_core(op, active)
+    first, second = fused_sa.fused_sa_bwd(op, active, out, g), fused_sa.fused_sa_bwd(op, active, out, g)
+    for x, y in zip([first[0], first[1], *first[2], *first[3]], [second[0], second[1], *second[2], *second[3]]):
+        assert torch.equal(x, y)
+    _, jstar = fused_sa.fused_sa_argmax(op, active)
+    first, second = fused_sa._winner_grads(op, jstar, g), fused_sa._winner_grads(op, jstar, g)
+    for x, y in zip([first[0], first[1], *first[2], *first[3]], [second[0], second[1], *second[2], *second[3]]):
+        assert torch.equal(x, y)
+
+
+def test_fused_sa_bwd_finish_kernel_matches_plain(dev):
+    """The finishing launch on a workspace and fixed-point da of random
+    values: dW / db within 1e-5 of the scale of the twin's sums (another
+    order), da bit-equal (one rounding of the same integers)."""
+    gen = torch.Generator().manual_seed(14)
+    part = torch.randn(640, fused_sa.PART_WIDTH, generator=gen).to(dev)
+    da_fx = torch.randint(-2 ** 62, 2 ** 62, (10, 1000, 32), generator=gen).to(dev)
+    da_exp = torch.tensor([40], dtype=torch.int32, device=dev)
+    got = fused_sa.fused_sa_bwd_finish(part, da_fx, da_exp)
+    ref = fused_sa._fused_sa_bwd_finish_plain(part, da_fx, da_exp)
+    assert torch.equal(got[0], ref[0])
+    for x, y in zip([*got[1], *got[2]], [*ref[1], *ref[2]]):
+        _assert_close_to_scale(x, y, 1e-5, "dw / db")
+
+
+@pytest.mark.parametrize("b,m,n,c", [(5, 20480, 1024, 128), (2, 3000, 50, 40), (1, 0, 7, 3)])
+def test_gather_bwd_kernel_equals_the_cpu_sum(dev, b, m, n, c):
+    """The gather backward (CSR by a stable sort, one warp a row) adds in
+    ascending order, as the CPU's scatter_add does: equal bit for bit, and
+    twice the same; MotionEmbedding's train shape, a narrow ragged one with
+    duplicates, and no index at all."""
+    gen = torch.Generator().manual_seed(15)
+    idx = torch.randint(0, n, (b, m), generator=gen)
+    g = torch.randn(b, m, c, generator=gen)
+    got = ops.gather_points_grad(g.to(dev), idx.to(dev), n)
+    assert torch.equal(got, ops.gather_points_grad(g.to(dev), idx.to(dev), n))
+    assert torch.equal(got.cpu(), ops.gather_points_grad(g, idx, n))
 
 
 def test_fused_sa_backward_kernels_reject_uncompiled_widths(dev):
@@ -316,7 +362,8 @@ def test_model_on_card_matches_cpu(dev):
     ops.reset_launch_counts()
     y_card = ModelInferenceHelper(card, num_points=4096).predict_batch(clouds[:2], clouds[2:])
     counts = ops.launch_counts()
-    assert counts == {"fps": 1, "min_d2": 1, "fused_sa": 1, "fused_sa_argmax": 0, "fused_sa_bwd": 0}
+    assert counts == {"fps": 1, "min_d2": 1, "fused_sa": 1, "fused_sa_argmax": 0, "fused_sa_bwd": 0,
+                      "fused_sa_bwd_finish": 0, "gather_bwd": 0}
     y_cpu = ModelInferenceHelper(cpu, num_points=4096).predict_batch(clouds[:2], clouds[2:])
     np.testing.assert_allclose(y_card, y_cpu, atol=2e-2, rtol=0)
 
@@ -586,7 +633,8 @@ def test_exact_model_on_card_matches_cpu(dev):
               .astype(np.float32) for _ in range(4)]
     ops.reset_launch_counts()
     y_card = ModelInferenceHelper(card, num_points=4096).predict_batch(clouds[:2], clouds[2:])
-    assert ops.launch_counts() == {"fps": 1, "min_d2": 0, "fused_sa": 0, "fused_sa_argmax": 0, "fused_sa_bwd": 0}
+    assert ops.launch_counts() == {"fps": 1, "min_d2": 0, "fused_sa": 0, "fused_sa_argmax": 0, "fused_sa_bwd": 0,
+                                   "fused_sa_bwd_finish": 0, "gather_bwd": 0}
     y_cpu = ModelInferenceHelper(cpu, num_points=4096).predict_batch(clouds[:2], clouds[2:])
     np.testing.assert_allclose(y_card, y_cpu, atol=2e-2, rtol=0)
 
