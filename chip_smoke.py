@@ -25,8 +25,16 @@ Phases, in order; any failure raises and exits non-zero:
    dense-ball case (4096 points in a 4 m cube, ~33 points a 0.5 m ball);
    the backward (with its finishing launch) and B5's backward launched
    twice on the same operands bit-equal in every output, in both dtypes,
-   on both cases; the finishing launch against its twin on the backward's
-   own workspace (da bit-equal, dW / db within 1e-5 of their scale); the
+   on both cases; the backward fed a cotangent with one NaN and one inf at
+   selected columns, in both dtypes, on both cases: da non-finite exactly
+   where the twin's is, its other entries within 1e-4 of their scale, two
+   launches bit-equal, NaN positions included; the backward fed a
+   cotangent whose float32 bound 1.01 P G overflows (four selected entries
+   at about 4 FLT_MAX / (1.01 P row sums), no output overflowing): its
+   scale launch's S (negative) and flags equal the twin's, every output
+   within 1e-4 of the twin's scale; the finishing launch against its twin
+   on the backward's own workspace (da bit-equal, dW / db within 1e-5 of
+   their scale, the scale launch's S and flags equal its twin's); the
    gather backward at MotionEmbedding's train shape (5 x 20480 rows of
    128 into 1024) twice bit-equal, equal bit for bit to the CPU's
    sequential scatter_add and within 1e-5 of the scale of the card's;
@@ -221,7 +229,20 @@ Phases, in order; any failure raises and exits non-zero:
    demo on that run directory (5 finite translation errors) and the
    ModelNet40 demo from seed 0 (3), both on the card with fps, min_d2 and
    fused_sa launched; export_kitti_poses on predictions of sequence 04,
-   its rows the predicted poses (calib.txt's Tr is the identity).
+   its rows the predicted poses (calib.txt's Tr is the identity); then the
+   paper tables: inference.run_scenario on the card under scenarios named
+   as the shipped ones and cut to the converted packs (kitti_04_10 on
+   sequence 04 with the trained run's weights, kitti_pairs on pairs_test
+   with them, modelnet40_unseen on the 11 unseen packs with the ModelNet40
+   model of seed 0), icp_po2pl through icp.cli.run on kitti_pairs, each
+   written as a run directory; fps, min_d2 and fused_sa launched in those
+   runs; the three tables' main() (python -m
+   deepclr_tpu_torch.paper.{kitti_odometry_table,kitti_artificial_table,
+   modelnet40_table}) with pandas and with pandas hidden, every number
+   either prints equal, to its printed precision (pandas) or exactly (the
+   standard-library table), to the evaluation CLI's step_errors.csv of
+   the same run, and the rows the runs' (sequences, methods).  The
+   phase's seconds are printed beside the card's name and power limit.
 
 ``python3 chip_smoke.py --dp-cards`` (a host with two or more cards, not
 part of the run above) runs phase 11's comparison across every card:
@@ -237,8 +258,10 @@ Imports nothing of jax or of the deepclr_tpu package.
 import contextlib
 import copy
 import importlib.util
+import io
 import json
 import logging
+import math
 import os
 import os.path as osp
 import statistics
@@ -498,6 +521,8 @@ def check_kernels(model, dev):
         if got[2][1].abs().max().item() == 0.0 or got[0][3].any() or got[1][3].any():
             raise AssertionError(f"fused_sa_bwd {dtype}: no winner selected, or a gradient in the all-masked cloud")
         check_repeat(f"fused_sa_bwd {dtype} 4 x {NPTS}", got, fused_sa.fused_sa_bwd(sa_op, active, out, g))
+        check_bwd_non_finite(sa_op, active, out, g, f"{dtype} 4 x {NPTS}")
+        check_bwd_overflow(sa_op, active, out, g, f"{dtype} 4 x {NPTS}")
         errs["fused_sa_bwd_finish"] = check_bwd_finish(sa_op, active, out, g)
         check_winner_grads_repeat(sa_op, jstar, g, f"{dtype} 4 x {NPTS}")
         errs["fused_sa_bwd"] = max(worst, check_bwd_dense(model, dev, dtype))
@@ -511,11 +536,16 @@ def _tensors(x):
     return [t for y in x for t in _tensors(y)]
 
 
+def bits(x):
+    """A float tensor's bits as integers (NaNs compare by their bits)."""
+    return x.view({torch.float32: torch.int32, torch.bfloat16: torch.int16}.get(x.dtype, x.dtype))
+
+
 def check_repeat(what, first, second):
     """Raise unless two results of the same call on the same operands
     (tensors, or nested lists of them) are equal bit for bit."""
     xs, ys = _tensors(first), _tensors(second)
-    differ = [i for i, (x, y) in enumerate(zip(xs, ys)) if not torch.equal(x, y)]
+    differ = [i for i, (x, y) in enumerate(zip(xs, ys)) if not torch.equal(bits(x), bits(y))]
     emit({"check": "bit_equal_repeat", "what": what, "outputs": len(xs), "outputs_differing": differ})
     if differ or len(xs) != len(ys):
         raise AssertionError(f"{what}: two launches on the same operands differ in outputs {differ}")
@@ -528,10 +558,11 @@ def check_bwd_finish(sa_op, active, out, g):
     rounding).  Returns the largest absolute error."""
     from deepclr_tpu_torch.ops import fused_sa
 
-    _, part, da_fx, da_exp = fused_sa._bwd_first_launch(sa_op, active, out, g, fused_sa.KERNEL_WIDTHS)
-    got = fused_sa.fused_sa_bwd_finish(part, da_fx, da_exp)
-    ref = fused_sa._fused_sa_bwd_finish_plain(part, da_fx, da_exp)
-    if not torch.equal(got[0], ref[0]):
+    _, part, da_fx, da_state = fused_sa._bwd_first_launch(sa_op, active, out, g, fused_sa.KERNEL_WIDTHS)
+    check_da_scale(sa_op, g, da_state, "fused_sa_bwd_finish")
+    got = fused_sa.fused_sa_bwd_finish(part, da_fx, da_state)
+    ref = fused_sa._fused_sa_bwd_finish_plain(part, da_fx, da_state)
+    if not torch.equal(bits(got[0]), bits(ref[0])):
         raise AssertionError("fused_sa_bwd_finish: da differs from the plain conversion")
     worst = 0.0
     for x, y in zip([*got[1], *got[2]], [*ref[1], *ref[2]]):
@@ -539,9 +570,96 @@ def check_bwd_finish(sa_op, active, out, g):
         worst = max(worst, err)
         if not err <= 1e-5 * max(1e-6, y.abs().max().item()):
             raise AssertionError(f"fused_sa_bwd_finish: dW / db max |diff| {err} vs the plain sum")
-    emit({"check": "fused_sa_bwd_finish", "rows": part.shape[0], "da_exponent": int(da_exp.item()),
+    emit({"check": "fused_sa_bwd_finish", "rows": part.shape[0], "da_exponent": int(da_state[0]),
           "max_abs_err": worst, "da_bit_equal": True})
     return worst
+
+
+def check_da_scale(sa_op, g, da_state, what):
+    """B4's scale launch (S and the flags in da_state) against its twin,
+    fused_sa.da_scale, on CPU copies of the rounded tail and g: equal."""
+    from deepclr_tpu_torch.ops import fused_sa
+
+    want = fused_sa.da_scale(*(w.cpu() for w in fused_sa._rounded_tail(sa_op)), g.cpu(), sa_op.bc.shape[1])
+    if not torch.equal(da_state[:2].cpu(), want):
+        raise AssertionError(f"{what}: the scale launch wrote S, flags {da_state[:2].tolist()}, "
+                             f"its twin {want.tolist()}")
+    return want
+
+
+def selected_entries(out, k):
+    """k cotangent entries whose column has a winner (out > 0), so the
+    equality select and relu' pass them, spread over cloud 0."""
+    hits = torch.nonzero(out[0] > 0)
+    return [(0, *hits[i * len(hits) // k].tolist()) for i in range(k)]
+
+
+def check_bwd_non_finite(sa_op, active, out, g, what):
+    """B4 fed g with one NaN and one inf at selected columns: da non-finite
+    exactly where the twin's is (the kernel flags those (point, lane)
+    sums and its finishing launch writes NaN there), its other entries and
+    the other outputs' finite entries within 1e-4 of their scale, two
+    launches bit-equal, NaN positions included."""
+    from deepclr_tpu_torch.ops import fused_sa
+
+    g = g.clone()
+    i_nan, i_inf = selected_entries(out, 2)
+    g[i_nan], g[i_inf] = float("nan"), float("inf")
+    got = fused_sa.fused_sa_bwd(sa_op, active, out, g)
+    ref = fused_sa._fused_sa_bwd_plain(sa_op, fused_sa._fused_sa_plain(sa_op), g)
+    bad, bad_ref = ~torch.isfinite(got[0]), ~torch.isfinite(ref[0])
+    if not bad.any() or not torch.equal(bad, bad_ref):
+        raise AssertionError(f"fused_sa_bwd {what}, non-finite g: da non-finite at {int(bad.sum())} entries, "
+                             f"the twin at {int(bad_ref.sum())}, {int((bad != bad_ref).sum())} differ")
+    errs = {}
+    for name, x, y in zip(("da", "dbc", "dw2", "dw3", "db2", "db3"), [got[0], got[1], *got[2], *got[3]],
+                          [ref[0], ref[1], *ref[2], *ref[3]]):
+        ok = torch.isfinite(x) & torch.isfinite(y)
+        scale = max(1e-3, y[ok].abs().max().item()) if ok.any() else 1e-3
+        errs[name] = (x[ok] - y[ok]).abs().max().item() if ok.any() else 0.0
+        if not errs[name] <= 1e-4 * scale:
+            raise AssertionError(f"fused_sa_bwd {what}, non-finite g, {name}: max |diff| {errs[name]} > 1e-4 of "
+                                 f"the scale {scale}")
+    check_repeat(f"fused_sa_bwd {what}, non-finite g", got, fused_sa.fused_sa_bwd(sa_op, active, out, g))
+    emit({"check": "fused_sa_bwd_non_finite_g", "what": what, "nan_at": list(i_nan), "inf_at": list(i_inf),
+          "da_non_finite": int(bad.sum()), "da_non_finite_equal_to_twin": True,
+          "non_finite": {name: int((~torch.isfinite(x)).sum()) for name, x in
+                         zip(("dbc", "dw2", "dw3", "db2", "db3"), [got[1], *got[2], *got[3]])},
+          "max_abs_err_finite": errs, "tolerance_of_scale": 1e-4})
+
+
+def check_bwd_overflow(sa_op, active, out, g, what):
+    """B4 fed g whose float32 bound 1.01 P G overflows while no output
+    does: four selected entries at +-4 FLT_MAX / (1.01 P max row sum |W2|
+    max row sum |W3|).  The scale launch's S (negative) and flags equal its
+    twin's; every output finite and within 1e-4 of the twin's scale."""
+    from deepclr_tpu_torch.ops import fused_sa
+
+    p = out.shape[1]
+    w2, w3 = fused_sa._rounded_tail(sa_op)
+    rows = w2.double().abs().sum(1).max().item() * w3.double().abs().sum(1).max().item()
+    big = 4 * torch.finfo(torch.float32).max / (1.01 * p * rows)
+    g = g.clone()
+    for k, idx in enumerate(selected_entries(out, 4)):
+        g[idx] = big if k % 2 else -big
+    f32_bound = (w2.abs().sum(1).amax() * w3.abs().sum(1).amax() * g.abs().amax() * (1.01 * p)).item()
+    _, _, _, da_state = fused_sa._bwd_first_launch(sa_op, active, out, g, fused_sa.KERNEL_WIDTHS)
+    want = check_da_scale(sa_op, g, da_state, f"fused_sa_bwd {what}, overflowing bound")
+    if not math.isinf(f32_bound) or want[0] >= 0 or want[1] != 0:
+        raise AssertionError(f"fused_sa_bwd {what}: float32 bound {f32_bound}, S, flags {want.tolist()}")
+    got = fused_sa.fused_sa_bwd(sa_op, active, out, g)
+    ref = fused_sa._fused_sa_bwd_plain(sa_op, fused_sa._fused_sa_plain(sa_op), g)
+    errs = {}
+    for name, x, y in zip(("da", "dbc", "dw2", "dw3", "db2", "db3"), [got[0], got[1], *got[2], *got[3]],
+                          [ref[0], ref[1], *ref[2], *ref[3]]):
+        scale = max(1e-3, y.abs().max().item())
+        errs[name] = (x - y).abs().max().item()
+        if not (torch.isfinite(x).all() and torch.isfinite(y).all()) or not errs[name] <= 1e-4 * scale:
+            raise AssertionError(f"fused_sa_bwd {what}, overflowing bound, {name}: max |diff| {errs[name]} "
+                                 f"against 1e-4 of the scale {scale}, or a non-finite output")
+    emit({"check": "fused_sa_bwd_float32_bound_overflow", "what": what, "max_abs_g": big,
+          "float32_bound": f32_bound, "da_exponent": int(want[0]), "max_abs_err": errs,
+          "scale_da": ref[0].abs().max().item(), "tolerance_of_scale": 1e-4})
 
 
 def check_winner_grads_repeat(sa_op, jstar, g, what):
@@ -643,6 +761,7 @@ def check_bwd_dense(model, dev, dtype):
         if not err <= 1e-4 * scale:
             raise AssertionError(f"fused_sa_bwd dense {dtype} {name}: max |diff| {err} > 1e-4 of the scale {scale}")
     check_repeat(f"fused_sa_bwd {dtype} dense 4 x 4096", got, fused_sa.fused_sa_bwd(sa_op, active, out, g))
+    check_bwd_non_finite(sa_op, active, out, g, f"{dtype} dense 4 x 4096")
     out_a, jstar = fused_sa.fused_sa_argmax(sa_op, active)
     check_winner_grads_repeat(sa_op, jstar, g, f"{dtype} dense 4 x 4096")
     emit({"check": "fused_sa_bwd_dense", "dtype": str(dtype), "clouds": 4, "points": 4096,
@@ -1018,33 +1137,56 @@ def finish_timing(sa_op, active, out, g):
     int64 da read once, da and the dW / db sums written once)."""
     from deepclr_tpu_torch.ops import fused_sa
 
-    _, part, da_fx, da_exp = fused_sa._bwd_first_launch(sa_op, active, out, g, fused_sa.KERNEL_WIDTHS)
+    _, part, da_fx, da_state = fused_sa._bwd_first_launch(sa_op, active, out, g, fused_sa.KERNEL_WIDTHS)
     return dict(
-        ms=kernel_ms(lambda: fused_sa.fused_sa_bwd_finish(part, da_fx, da_exp), 50),
-        device_ms=device_ms(lambda: fused_sa.fused_sa_bwd_finish(part, da_fx, da_exp), 50),
-        plain_ms=cuda_ms(lambda: fused_sa._fused_sa_bwd_finish_plain(part, da_fx, da_exp), reps=5),
-        bound=bound(nbytes(part, da_fx, da_exp) + da_fx.numel() * 4 + fused_sa.PART_WIDTH * 4,
+        ms=kernel_ms(lambda: fused_sa.fused_sa_bwd_finish(part, da_fx, da_state), 50),
+        device_ms=device_ms(lambda: fused_sa.fused_sa_bwd_finish(part, da_fx, da_state), 50),
+        plain_ms=cuda_ms(lambda: fused_sa._fused_sa_bwd_finish_plain(part, da_fx, da_state), reps=5),
+        bound=bound(nbytes(part, da_fx, da_state) + da_fx.numel() * 4 + fused_sa.PART_WIDTH * 4,
                     float(part.numel() + da_fx.numel())),
         library_ms=None, rows=part.shape[0])
 
 
 def gather_bwd_timing(dev):
     """The gather backward at MotionEmbedding's train shape: the wrapper
-    (stable sort, CSR offsets, the kernel), its plain twin (scatter_add_),
-    one library call of the same sum (index_add_ over the flattened rows),
-    and its bound (g and the indices read once, the rows written once)."""
+    (stable sort, CSR offsets, the kernel), its plain twin (scatter_add_,
+    atomics on the card), its bound (g and the indices read once, the rows
+    written once), and library calls of the same sum: index_add_ over the
+    flattened rows (atomics), and the two that are deterministic, so the
+    same function as the kernel's, under
+    torch.use_deterministic_algorithms(True): index_put_(accumulate=True)
+    (the kernels line's library_ms) and torch.gather's own backward, each
+    timed as the wrapper is (back to back, and on the device alone)."""
     from deepclr_tpu_torch.ops import grouping
 
     g, idx, n = gather_bwd_operands(dev)
     b, m, c = g.shape
     flat_idx = (idx + torch.arange(b, device=dev)[:, None] * n).reshape(-1)
     flat_g = g.reshape(-1, c)
-    return dict(
+    timing = dict(
         ms=kernel_ms(lambda: grouping.gather_points_grad(g, idx, n), 50),
         device_ms=device_ms(lambda: grouping.gather_points_grad(g, idx, n), 50),
         plain_ms=cuda_ms(lambda: grouping._gather_points_grad_plain(g, idx, n), reps=5),
-        library_ms=cuda_ms(lambda: torch.zeros(b * n, c, device=dev).index_add_(0, flat_idx, flat_g), reps=5),
+        index_add_ms=cuda_ms(lambda: torch.zeros(b * n, c, device=dev).index_add_(0, flat_idx, flat_g), reps=5),
         bound=bound(nbytes(g, idx) + b * n * c * 4, float(b * m * c)), shape=[b, m, n, c])
+    x = torch.zeros(b, n, c, device=dev, requires_grad=True)
+    gathered = torch.gather(x, 1, idx[..., None].expand(-1, -1, c))
+    library = {
+        "index_put": lambda: torch.zeros(b * n, c, device=dev).index_put_((flat_idx,), flat_g, accumulate=True),
+        "gather_backward": lambda: torch.autograd.grad(gathered, x, g, retain_graph=True),
+    }
+    saved = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        for name, fn in library.items():
+            timing[f"deterministic_{name}_ms"] = kernel_ms(fn, 20)
+            timing[f"deterministic_{name}_device_ms"] = device_ms(fn, 20)
+    finally:
+        torch.use_deterministic_algorithms(saved)
+    timing["library_ms"] = timing["deterministic_index_put_ms"]
+    emit({"timing": "gather_bwd", **{k: v for k, v in timing.items() if k != "bound"},
+          "bound_ms": timing["bound"][0], "library_ms_is": "index_put_(accumulate=True), deterministic"})
+    return timing
 
 
 def bwd_dense_timing(model, dev):
@@ -2774,7 +2916,163 @@ def printed_errors(text, want):
     return errs
 
 
-def run_cli_phase(dev):
+# each paper table: the scenario and the run's step_errors.csv row it reads,
+# and its columns -> the evaluation CLI's columns
+PAPER_TABLES = {
+    "kitti_odometry_table": ("kitti_04_10", None, {"t_rmse [m]": "t_rmse_mean [m]",
+                                                    "r_rmse [deg]": "r_rmse_mean [deg]"}),
+    "kitti_artificial_table": ("kitti_pairs", "TOTAL", {
+        "Rot. Error Mean [deg]": "r_chordal_mean [deg]", "Rot. Error Max [deg]": "r_chordal_max [deg]",
+        "Tran. Error Mean [m]": "t_kitti_mean [m]", "Tran. Error Max [m]": "t_kitti_max [m]",
+        "Time [ms]": "time_mean [ms]"}),
+    "modelnet40_table": ("modelnet40_unseen", "test_unseen_0.04", {
+        "Rot. Error Mean [deg]": "r_chordal_mean [deg]", "Rot. Error Std [deg]": "r_chordal_std [deg]",
+        "Tran. Error Mean [m]": "t_kitti_mean [m]", "Tran. Error Std [m]": "t_kitti_std [m]",
+        "Time [ms]": "time_mean [ms]"}),
+}
+
+
+def printed_cells(text, labels):
+    """{(row label, column name): number token} of a printed table: each
+    header line names its block's columns (two or more spaces apart); a
+    wrapped pandas frame repeats it a block, and pandas hides middle
+    columns behind '...', which name no cell."""
+    import re
+
+    cells, header = {}, None
+    for line in text.splitlines():
+        tokens = line.split()
+        if tokens and tokens[0] in labels and header is not None:
+            if len(tokens) != len(header) + 1:
+                raise AssertionError(f"table row {line!r} against the header {header}")
+            cells.update(((tokens[0], col), tok) for col, tok in zip(header, tokens[1:]) if col != "...")
+        elif line.startswith(" ") and line.strip():
+            header = re.split(r"\s{2,}", line.strip().rstrip("\\").strip())
+    return cells
+
+
+def half_unit(token):
+    """Half a unit in the last printed digit of a number token."""
+    mantissa, _, exponent = token.lower().partition("e")
+    return 0.5 * 10.0 ** (int(exponent or 0) - len(mantissa.partition(".")[2]))
+
+
+def check_paper_table(name, printed, runs, with_pandas):
+    """One table's stdout against the evaluation CLI's step_errors.csv of
+    the runs it reads: every row, every number (to its printed precision
+    from pandas, exactly from the standard-library table; NaN as NaN), and
+    every column without pandas.  ``runs``: {method: run directory}."""
+    import csv
+
+    _, row_name, columns = PAPER_TABLES[name]
+    csvs = {}
+    for method, d in runs.items():
+        with open(osp.join(d, "evaluation", "step_errors.csv"), newline="") as f:
+            csvs[method] = {r["name"]: r for r in csv.DictReader(f)}
+    if row_name is None:  # the DEEPCLR run's sequences
+        want = {seq: row for seq, row in csvs["DEEPCLR"].items() if seq != "TOTAL"}
+    else:
+        want = {method: rows[row_name] for method, rows in csvs.items()}
+    cells = printed_cells(printed, want)
+    if not with_pandas and sorted(cells) != sorted((label, c) for label in want for c in columns):
+        raise AssertionError(f"{name} without pandas: cells {sorted(cells)}")
+    if not cells or {label for label, _ in cells} != set(want):
+        raise AssertionError(f"{name}: rows {sorted({label for label, _ in cells})}, runs {sorted(want)}")
+    for (label, column), token in cells.items():
+        value = want[label][columns[column]]
+        value = float("nan") if value == "" else float(value)
+        if math.isnan(value) or math.isnan(float(token)):
+            ok = math.isnan(value) and math.isnan(float(token))
+        elif with_pandas:
+            ok = abs(float(token) - value) <= half_unit(token) * (1 + 1e-9)
+        else:
+            ok = float(token) == value
+        if not ok:
+            raise AssertionError(f"{name}: {label} {column} printed {token}, the evaluation CLI {value!r}")
+    if name == "kitti_odometry_table":
+        line = printed.strip().splitlines()[-1]
+        total = float(csvs["DEEPCLR"]["TOTAL"]["time_mean [ms]"])
+        if line != f"Average Inference Time: {total:.2f} ms":
+            raise AssertionError(f"{name}: {line!r} against the evaluation CLI's mean time {total}")
+    return len(cells)
+
+
+def run_paper_tables(tmp, kitti, modelnet, trained_dir, quiet):
+    """The paper tables on card-produced runs (phase 12): the three
+    scenarios through inference.run_scenario and icp_po2pl through
+    icp.cli.run, each a run directory scored by the evaluation CLI; then
+    each table with pandas and with pandas hidden, checked by
+    check_paper_table."""
+    from deepclr_tpu_torch import inference, ops
+    from deepclr_tpu_torch.config import load_model_config
+    from deepclr_tpu_torch.evaluation import cli as evaluation_cli
+    from deepclr_tpu_torch.evaluation import scenario_from_dict
+    from deepclr_tpu_torch.icp import cli as icp_cli
+    from deepclr_tpu_torch.models import build_model, load_trained_model
+    from deepclr_tpu_torch.paper import kitti_artificial_table, kitti_odometry_table, modelnet40_table
+
+    base = osp.join(tmp, "paper_runs")
+    os.makedirs(base)
+    pairs = sorted(f[:-5] for f in os.listdir(osp.join(kitti, "pairs_test")) if f.endswith(".pack"))
+    noise = [f"test_unseen_{s / 100:0.2f}" for s in range(11)]
+    scenarios = {
+        "kitti_04_10": ({"name": "kitti_04_10", "dataset_type": "kitti_odometry_velodyne", "sequential": True,
+                         "data": {"04": osp.join(kitti, "odometry", "04.pack")}}, NPTS),
+        "kitti_pairs": ({"name": "kitti_pairs", "dataset_type": "generic", "sequential": False,
+                         "data": {s: osp.join(kitti, "pairs_test", f"{s}.pack") for s in pairs}}, NPTS),
+        "modelnet40_unseen": ({"name": "modelnet40_unseen", "dataset_type": "generic", "sequential": False,
+                               "data": {k: osp.join(modelnet, "test", f"{k}.pack") for k in noise}}, MN_POINTS),
+    }
+    weights = osp.join(trained_dir, "weights.pt")
+    t0 = time.perf_counter()
+    runs = {name: {} for name in scenarios}
+    ops.reset_launch_counts()
+    with torch.inference_mode():
+        kitti_model = load_trained_model(load_model_config(osp.join(trained_dir, "model_config.yaml"), weights),
+                                         weights)
+        mn_model = build_model(modelnet_model_cfg(), device="cuda", seed=0)
+        for name, (d, num_points) in scenarios.items():
+            scen = scenario_from_dict(d)
+            model = mn_model if name == "modelnet40_unseen" else kitti_model
+            ev = inference.run_scenario(scen, model, num_points, logger=quiet)
+            model_name = "modelnet40_seed0" if model is mn_model else osp.basename(trained_dir)
+            runs[name]["DEEPCLR"] = write_run_dir(base, scen, "DEEPCLR", {"model_name": model_name}, ev)
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        runs["kitti_pairs"]["ICP_PO2PL"] = icp_cli.run(scenario_from_dict(scenarios["kitti_pairs"][0]), "icp_po2pl",
+                                                        base, max_distance=ICP_MAX_DISTANCE, logger=quiet)
+    missing = [k for k in SERVING_KERNELS if counts[k] < 1]
+    if missing or counts["fused_sa_bwd"]:
+        raise AssertionError(f"paper runs: launches {counts}")
+    infer_s = time.perf_counter() - t0
+    for by_method in runs.values():
+        for run_dir in by_method.values():
+            evaluation_cli.main([run_dir])
+    out = {"inference_and_icp_s": infer_s, "launches": counts, "runs": {k: sorted(v) for k, v in runs.items()},
+           "pairs_test": pairs}
+    tables = {"kitti_odometry_table": kitti_odometry_table, "kitti_artificial_table": kitti_artificial_table,
+              "modelnet40_table": modelnet40_table}
+    for with_pandas in (True, False):
+        saved = sys.modules.get("pandas", "absent")
+        if not with_pandas:
+            sys.modules["pandas"] = None
+        try:
+            for name, module in tables.items():
+                with contextlib.redirect_stdout(io.StringIO()) as printed:
+                    module.main([base])
+                cells = check_paper_table(name, printed.getvalue(), runs[PAPER_TABLES[name][0]], with_pandas)
+                out[f"{name}_{'pandas' if with_pandas else 'stdlib'}"] = {"cells_checked": cells,
+                                                                          "stdout": printed.getvalue()}
+        finally:
+            if saved == "absent":
+                sys.modules.pop("pandas", None)
+            else:
+                sys.modules["pandas"] = saved
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def run_cli_phase(dev, card):
     """Phase 12: the data CLIs and the inference examples, each through its
     main() as ``python -m`` runs it, in a temporary directory: synthetic raw
     KITTI and ModelNet40 layouts, every converter on them (each pack read
@@ -2874,9 +3172,12 @@ def run_cli_phase(dev):
         if exported.shape != want.shape or not np.allclose(exported, want, atol=1e-9):
             raise AssertionError(f"export_kitti_poses: {exported.shape} rows against {want.shape}")
         out["export_kitti_poses_rows"] = len(exported)
+        out["paper_tables"] = run_paper_tables(tmp, kitti, modelnet, cfg.output_dir,
+                                               logging.getLogger("chip_smoke.paper"))
     out["seconds"] = time.perf_counter() - start
     emit({"check": "cli", **out})
-    emit({"phase": "cli", "seconds": out["seconds"]})
+    emit({"phase": "cli", "seconds": out["seconds"], "paper_tables_s": out["paper_tables"]["seconds"],
+          "card": card})
 
 
 def run_torchrun_ranks(path, out_dir, n):
@@ -2969,7 +3270,7 @@ def main():
         run_icp_phase(dev, card, {"deepclr_phase7": deepclr_run, "deepclr_phase8_04": trained_run})
     run_variants_phase(model, dev, card, metrics["forward_pairs_per_s"], raycast)
     dp_launches = run_data_parallel_phase(card)
-    run_cli_phase(dev)
+    run_cli_phase(dev, card)
     launches = {**{k: serve_counts[k] for k in SERVING_KERNELS},
                 **{k: train_counts[k] for k in ("fused_sa_bwd", *OWN_KERNELS)},
                 "fused_sa_argmax": argmax_counts["fused_sa_argmax"]}

@@ -12,7 +12,9 @@
 // * fused_sa_bwd_kernel: _make_bwd_kernel, behind ball_mlp_max_bwd_pallas,
 //   with fused_sa_bwd_finish_kernel, the port's own second launch that sums
 //   its per-block dW / db rows in a fixed order and converts its
-//   fixed-point da (the design note above fused_sa_bwd_kernel).
+//   fixed-point da (the design note above fused_sa_bwd_kernel); B4's entry
+//   point first launches da_scale_kernel, which writes that fixed point's
+//   scale.
 // All three live in this one source and run every pair's MLP through one
 // function, pair_recompute, so the backward's recompute equals the
 // forward bit for bit by construction; the library hash of ops/_cuda.py
@@ -527,9 +529,10 @@ fused_sa_kernel(const float4* __restrict__ pts, const float* __restrict__ a,
 //     fixed-point atomics, order-free because integer addition is
 //     associative.  The values are integer multiples of 2^-S, S = 62 - e,
 //     where 2^e exceeds 1.01 P G and G = max row sum |W2| x max row sum |W3|
-//     x max |g| (the wrapper computes S on the device: da_exponent).  No pair
-//     adds more than G to a point's entry and a point has at most P pairs,
-//     so no sum leaves int64.  Each warp run's float sum is rounded to that
+//     x max finite |g|, a float64 product, so it cannot overflow and S may
+//     be negative (da_scale_kernel, launched first by the same entry point,
+//     writes S).  No pair adds more than G to a point's entry and a point
+//     has at most P pairs, so no sum leaves int64.  Each warp run's float sum is rounded to that
 //     grid once: against the exact sum of those float runs the error is at
 //     most P 2^-(S+1) <= 1.01 P^2 G 2^-62, about 2.3e-13 G at P = 1024, far
 //     below float32 rounding.  fused_sa_bwd_finish converts the integers to
@@ -537,6 +540,15 @@ fused_sa_kernel(const float4* __restrict__ pts, const float* __restrict__ a,
 //     summed in tile order, needs a workspace that grows with the visited
 //     blocks (1.3 GB on the dense case at 10 x 16384), where the int64 sums
 //     take twice da's bytes.
+//   * non-finite cotangents: a warp run's da sum that is NaN or inf never
+//     reaches the integer (a NaN would convert to a fixed integer and
+//     saturate the sum); it sets the (point, lane) bit of a flag word, one
+//     uint32 a point (H1 = 32), by atomicOr, which is order-free too, and
+//     fused_sa_bwd_finish writes NaN there.  So da is non-finite exactly
+//     where a selected pair's float chain is, as in the twin, and relu' is
+//     a select on both sides (a product would spread a NaN to inactive
+//     units).  A non-finite weight makes the bound itself non-finite: then
+//     all of da is NaN.
 //
 // Measured before this design (chip_smoke.py, back-to-back launches, NVIDIA
 // H100 80GB HBM3, 700 W), bf16 at 10 clouds x 16384 -> 1024: 0.19 ms on the
@@ -612,9 +624,102 @@ __device__ __forceinline__ int list_pairs(const Staging<H1, H2, H3>& s, float4* 
   return *count;
 }
 
-// da += x in fixed point: x * 2^S rounded to an integer (scale = 2^S)
-__device__ __forceinline__ void add_fixed(unsigned long long* dst, float x, double scale) {
-  if (x != 0.0f) atomicAdd(dst, (unsigned long long)__double2ll_rn((double)x * scale));
+// da += x in fixed point: x * 2^S rounded to an integer (scale = 2^S); a
+// non-finite x sets the lane's bit of the point's flag word instead
+__device__ __forceinline__ void add_fixed(unsigned long long* dst, unsigned* flags, int lane, float x,
+                                          double scale) {
+  if (!isfinite(x)) {
+    atomicOr(flags, 1u << lane);
+  } else if (x != 0.0f) {
+    atomicAdd(dst, (unsigned long long)__double2ll_rn((double)x * scale));
+  }
+}
+
+// B4's fixed-point state (int32 words, zeroed by the caller): S, the flags
+// below, max finite |g| as float bits, the scale blocks' ticket, then one
+// flag word a point of da (bit k: lane k's sum was not finite).
+constexpr int kStateWords = 4;
+constexpr int kFlagG = 1;      // g holds a NaN or an inf
+constexpr int kFlagBound = 2;  // the bound is not finite (a weight is not): all of da is NaN
+constexpr int kScaleThreads = 256;
+constexpr int kScaleBlocks = 264;  // two a SM at most
+
+// S of the fixed-point da: blocks reduce max finite |g| (as unsigned bits,
+// which order non-negative floats) and a non-finite flag with atomics,
+// order-free; the last block to take a ticket computes the bound 1.01 P x
+// max row sum |W2| x max row sum |W3| x max finite |g| in float64 (rows
+// summed in column order) and S = 62 - e with 2^e > bound (62 for a zero
+// bound).  Bound: bytes (g read once).  ops/fused_sa.py::da_scale is its
+// twin.
+__global__ void __launch_bounds__(kScaleThreads)
+da_scale_kernel(const float* __restrict__ g, long long n_g, const float* __restrict__ w2,
+                const float* __restrict__ w3, int p, int* __restrict__ state) {
+  __shared__ unsigned s_max[kScaleThreads / 32];
+  __shared__ int s_nonfinite[kScaleThreads / 32];
+  __shared__ double s_rows[64];
+  __shared__ bool s_last;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  unsigned mx = 0u;
+  int nonfinite = 0;
+  for (long long i = (long long)blockIdx.x * kScaleThreads + threadIdx.x; i < n_g;
+       i += (long long)gridDim.x * kScaleThreads) {
+    const float v = fabsf(g[i]);
+    if (isfinite(v)) {
+      mx = max(mx, __float_as_uint(v));
+    } else {
+      nonfinite = 1;
+    }
+  }
+  mx = __reduce_max_sync(kFull, mx);
+  nonfinite = __reduce_or_sync(kFull, nonfinite);
+  if (lane == 0) {
+    s_max[warp] = mx;
+    s_nonfinite[warp] = nonfinite;
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    for (int w = 1; w < kScaleThreads / 32; ++w) {
+      mx = max(mx, s_max[w]);
+      nonfinite |= s_nonfinite[w];
+    }
+    atomicMax(reinterpret_cast<unsigned*>(state + 2), mx);
+    if (nonfinite) atomicOr(state + 1, kFlagG);
+    __threadfence();
+    s_last = atomicAdd(state + 3, 1) == (int)gridDim.x - 1;
+  }
+  __syncthreads();
+  if (!s_last) return;
+  // rows 0-31 of W2 (32 x 32), then rows 0-31 of W3 (32 x 64)
+  if (threadIdx.x < 64) {
+    const int r = threadIdx.x & 31, width = threadIdx.x < 32 ? 32 : 64;
+    const float* row = threadIdx.x < 32 ? w2 + r * 32 : w3 + r * 64;
+    double acc = 0.0;
+    for (int c = 0; c < width; ++c) acc += fabs((double)row[c]);
+    s_rows[threadIdx.x] = acc;
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    double r2 = 0.0, r3 = 0.0;
+    for (int r = 0; r < 32; ++r) {
+      r2 = fmax(r2, s_rows[r]);
+      r3 = fmax(r3, s_rows[32 + r]);
+    }
+    // NaN row sums: fmax drops them, so test the rows themselves
+    bool finite = true;
+    for (int r = 0; r < 64; ++r) finite = finite && isfinite(s_rows[r]);
+    const double gmax = (double)__uint_as_float(atomicOr(reinterpret_cast<unsigned*>(state + 2), 0u));
+    const double bound = r2 * r3 * gmax * (1.01 * p);
+    int sc = 62;
+    if (!finite || !isfinite(bound)) {
+      sc = 0;
+      atomicOr(state + 1, kFlagBound);
+    } else if (bound > 0.0) {
+      int e;
+      frexp(bound, &e);
+      sc = 62 - e;
+    }
+    state[0] = sc;
+  }
 }
 
 // One round's pairs: the rounded layer inputs and rounded deltas.  Rows
@@ -787,7 +892,7 @@ fused_sa_bwd_kernel(const float4* __restrict__ pts, const float* __restrict__ a,
                     const float* __restrict__ w3, const float* __restrict__ b3,
                     const float* __restrict__ r2, const uint8_t* __restrict__ active,
                     const float* __restrict__ out, const float* __restrict__ g,
-                    const int* __restrict__ da_exp, unsigned long long* __restrict__ da_fx,
+                    int* __restrict__ da_state, unsigned long long* __restrict__ da_fx,
                     float* __restrict__ dbc, float* __restrict__ part, int n, int p, float r2max) {
   static_assert(H1 == 32 && H2 == 32 && H3 == 64,
                 "lane c owns layer-1/2 unit c and layer-3 columns c, c + 32");
@@ -824,7 +929,8 @@ fused_sa_bwd_kernel(const float4* __restrict__ pts, const float* __restrict__ a,
   }
   for (int i = tid; i < kWarps * kTile * (H1 + 1); i += kThreads) (&sdbc[0][0])[i] = 0.0f;
   float* wdbc = sdbc[warp];
-  const double da_scale = ldexp(1.0, *da_exp);
+  const double da_scale = ldexp(1.0, da_state[0]);
+  unsigned* da_flags = reinterpret_cast<unsigned*>(da_state) + kStateWords + (size_t)b * n;
   LaneWeights lw;  // this lane's recompute weights
   lw.load(w2, w3, lane);
   DwSums<H1, H2, H3, BF16> dw;
@@ -909,14 +1015,18 @@ fused_sa_bwd_kernel(const float4* __restrict__ pts, const float* __restrict__ a,
 
         // layer 1: the cotangents of a_j and bc_p
         if (j != cur_j) {  // warp-uniform
-          if (cur_j >= 0) add_fixed(da_fx + ((size_t)b * n + cur_j) * H1 + lane, da_sum, da_scale);
+          if (cur_j >= 0) {
+            add_fixed(da_fx + ((size_t)b * n + cur_j) * H1 + lane, da_flags + cur_j, lane, da_sum, da_scale);
+          }
           cur_j = j;
           da_sum = 0.0f;
         }
         da_sum += d0;
         wdbc[t * (H1 + 1) + lane] += d0;
       }
-      if (cur_j >= 0) add_fixed(da_fx + ((size_t)b * n + cur_j) * H1 + lane, da_sum, da_scale);
+      if (cur_j >= 0) {
+        add_fixed(da_fx + ((size_t)b * n + cur_j) * H1 + lane, da_flags + cur_j, lane, da_sum, da_scale);
+      }
       __syncthreads();
       dw.add(rows, live);
       __syncthreads();  // the next round overwrites the staged rows
@@ -947,7 +1057,8 @@ fused_sa_bwd_kernel(const float4* __restrict__ pts, const float* __restrict__ a,
 }
 
 // B4's second launch: dW and db summed over the workspace rows in block
-// order, and da converted from fixed point to float32.  Blocks below
+// order, and da converted from fixed point to float32 (NaN where a flag
+// bit is set, everywhere under kFlagBound).  Blocks below
 // kFinishColBlocks take 32 workspace columns each: thread (segment s, lane)
 // sums rows s, s + 8, s + 16, ... of its column in order, then segment 0
 // adds the eight segment sums in order.  The blocks above convert da,
@@ -961,7 +1072,7 @@ static_assert(kPartWidth % 32 == 0, "whole warps of workspace columns");
 __global__ void __launch_bounds__(kFinishThreads)
 fused_sa_bwd_finish_kernel(const float* __restrict__ part, int nrows,
                            const unsigned long long* __restrict__ da_fx,
-                           const int* __restrict__ da_exp, long long n_da, float* __restrict__ da,
+                           const int* __restrict__ da_state, long long n_da, float* __restrict__ da,
                            float* __restrict__ dw2, float* __restrict__ db2,
                            float* __restrict__ dw3, float* __restrict__ db3) {
   if (blockIdx.x < kFinishColBlocks) {
@@ -988,11 +1099,14 @@ fused_sa_bwd_finish_kernel(const float* __restrict__ part, int nrows,
     }
     return;
   }
-  const int ex = *da_exp;
+  const int ex = da_state[0];
+  const bool all_nan = (da_state[1] & kFlagBound) != 0;
+  const unsigned* flags = reinterpret_cast<const unsigned*>(da_state) + kStateWords;
   const long long stride = (long long)(gridDim.x - kFinishColBlocks) * kFinishThreads;
   for (long long i = (long long)(blockIdx.x - kFinishColBlocks) * kFinishThreads + threadIdx.x; i < n_da;
        i += stride) {
-    da[i] = ldexpf(__ll2float_rn((long long)da_fx[i]), -ex);
+    const bool bad = all_nan || ((flags[i >> 5] >> (i & 31)) & 1u);
+    da[i] = bad ? __int_as_float(0x7fc00000) : ldexpf(__ll2float_rn((long long)da_fx[i]), -ex);
   }
 }
 
@@ -1027,15 +1141,20 @@ template <bool BF16>
 cudaError_t launch_bwd(const float4* pts, const float* a, const float* cts, const float* bc,
                        const float* w2, const float* b2, const float* w3, const float* b3,
                        const float* r2, const uint8_t* active, const float* out, const float* g,
-                       const int* da_exp, unsigned long long* da_fx, float* dbc, float* part, int b,
+                       int* da_state, unsigned long long* da_fx, float* dbc, float* part, int b,
                        int n, int p, float r2max, cudaStream_t stream) {
   const auto kernel = fused_sa_bwd_kernel<32, 32, 64, BF16>;
   const int smem = (int)(sizeof(RoundRows<32, 32, 64>) + sizeof(TileRows<64>));
-  const cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const long long n_g = (long long)b * p * 64;
+  const long long want = (n_g + 8 * kScaleThreads - 1) / (8 * kScaleThreads);
+  da_scale_kernel<<<(int)(want < kScaleBlocks ? want : kScaleBlocks), kScaleThreads, 0, stream>>>(
+      g, n_g, w2, w3, p, da_state);
+  err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const dim3 grid((p + kTile - 1) / kTile, b);
-  kernel<<<grid, kThreads, smem, stream>>>(pts, a, cts, bc, w2, b2, w3, b3, r2, active, out, g, da_exp,
+  kernel<<<grid, kThreads, smem, stream>>>(pts, a, cts, bc, w2, b2, w3, b3, r2, active, out, g, da_state,
                                            da_fx, dbc, part, n, p, r2max);
   return cudaGetLastError();
 }
@@ -1075,15 +1194,17 @@ extern "C" int deepclr_fused_sa_argmax(const float* pts, const float* a, const f
 }
 
 // The forward's operands, plus out (B, P, H3) (the forward's own output),
-// g (B, P, H3) its cotangent and da_exp (int32, one) the fixed-point
-// exponent S.  Writes dbc (B, P, H1) and part (B * ceil(P/tile),
-// kPartWidth): each block's dW3, dW2, db3 and db2 sums; adds da * 2^S into
-// da_fx (B, N, H1) int64, which the caller zeroes.
+// g (B, P, H3) its cotangent and da_state (int32, kStateWords + B * N,
+// zeroed by the caller).  Launches da_scale_kernel, which writes S and the
+// flags into da_state, then the backward, which writes dbc (B, P, H1) and
+// part (B * ceil(P/tile), kPartWidth): each block's dW3, dW2, db3 and db2
+// sums; adds da * 2^S into da_fx (B, N, H1) int64, which the caller
+// zeroes, and sets da_state's per-point flag bits for non-finite sums.
 extern "C" int deepclr_fused_sa_bwd(const float* pts, const float* a, const float* cts,
                                     const float* bc, const float* w2, const float* b2,
                                     const float* w3, const float* b3, const float* r2,
                                     const uint8_t* active, const float* out, const float* g,
-                                    const int* da_exp, unsigned long long* da_fx, float* dbc,
+                                    int* da_state, unsigned long long* da_fx, float* dbc,
                                     float* part, int b, int n, int p, int h1, int h2, int h3,
                                     int chunk, int tile, float r2max, int bf16,
                                     cudaStream_t stream) {
@@ -1092,24 +1213,25 @@ extern "C" int deepclr_fused_sa_bwd(const float* pts, const float* a, const floa
   }
   const float4* pts4 = reinterpret_cast<const float4*>(pts);
   if (bf16 != 0) {
-    return (int)launch_bwd<true>(pts4, a, cts, bc, w2, b2, w3, b3, r2, active, out, g, da_exp, da_fx,
+    return (int)launch_bwd<true>(pts4, a, cts, bc, w2, b2, w3, b3, r2, active, out, g, da_state, da_fx,
                                  dbc, part, b, n, p, r2max, stream);
   }
-  return (int)launch_bwd<false>(pts4, a, cts, bc, w2, b2, w3, b3, r2, active, out, g, da_exp, da_fx,
+  return (int)launch_bwd<false>(pts4, a, cts, bc, w2, b2, w3, b3, r2, active, out, g, da_state, da_fx,
                                 dbc, part, b, n, p, r2max, stream);
 }
 
 // B4's second launch: part (nrows, kPartWidth) summed over its rows in order
-// into dw2 (32, 32), db2 (32), dw3 (32, 64), db3 (64); da_fx (n_da int64)
-// times 2^-S into da (n_da float32).
+// into dw2 (32, 32), db2 (32), dw3 (32, 64), db3 (64); da_fx (n_da int64,
+// H1 = 32 a point) times 2^-S into da (n_da float32), S and the flags from
+// da_state (as deepclr_fused_sa_bwd left it).
 extern "C" int deepclr_fused_sa_bwd_finish(const float* part, int nrows,
-                                           const unsigned long long* da_fx, const int* da_exp,
+                                           const unsigned long long* da_fx, const int* da_state,
                                            long long n_da, float* da, float* dw2, float* db2,
                                            float* dw3, float* db3, cudaStream_t stream) {
-  if (nrows <= 0 || n_da < 0) return (int)cudaErrorInvalidValue;
+  if (nrows <= 0 || n_da < 0 || n_da % 32 != 0) return (int)cudaErrorInvalidValue;
   const long long da_blocks = (n_da + kFinishThreads - 1) / kFinishThreads;
   const int grid = kFinishColBlocks + (int)(da_blocks < 4096 ? (da_blocks > 0 ? da_blocks : 1) : 4096);
-  fused_sa_bwd_finish_kernel<<<grid, kFinishThreads, 0, stream>>>(part, nrows, da_fx, da_exp, n_da, da,
+  fused_sa_bwd_finish_kernel<<<grid, kFinishThreads, 0, stream>>>(part, nrows, da_fx, da_state, n_da, da,
                                                                   dw2, db2, dw3, db3);
   return (int)cudaGetLastError();
 }

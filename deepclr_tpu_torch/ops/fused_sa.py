@@ -23,9 +23,12 @@ PyTorch twin that a CPU tensor runs:
 * ``fused_sa_argmax`` (same source): the forward plus each column's winning
   point index;
 * ``fused_sa_bwd`` (same source): the equality-select backward, two
-  launches: the kernel itself, then ``fused_sa_bwd_finish``, which sums its
-  per-block dW / db rows in block order and converts its fixed-point da.
-  Two launches on the same operands give the same bits.
+  launches: the kernel itself (its entry point first reduces g to the
+  fixed-point scale of da, ``da_scale``'s kernel), then
+  ``fused_sa_bwd_finish``, which sums its per-block dW / db rows in block
+  order and converts its fixed-point da, NaN where a selected pair's float
+  chain was not finite.  Two launches on the same operands give the same
+  bits.
 
 Distances are the dx^2 form (x - c)^2 summed x, y, z with every product
 rounded, in every kernel and twin, so culling and radius decisions agree bit
@@ -67,7 +70,7 @@ __all__ = [
     "fused_sa_argmax",
     "fused_sa_bwd",
     "fused_sa_bwd_finish",
-    "da_exponent",
+    "da_scale",
     "multi_scale_bundle",
     "prepare",
     "SAOperands",
@@ -91,6 +94,12 @@ BACKWARDS = ("kernel", "argmax")
 # dW3, dW2, db3, db2 at KERNEL_WIDTHS
 PART_SPLIT = (32 * 64, 32 * 32, 64, 32)
 PART_WIDTH = sum(PART_SPLIT)
+# B4's fixed-point state (csrc/fused_sa.cu kStateWords): S, the flags, two
+# words of the scale launch, then one flag word a point of da (bit k: lane
+# k's sum was not finite)
+DA_STATE_WORDS = 4
+DA_G_NONFINITE = 1      # g holds a NaN or an inf
+DA_BOUND_NONFINITE = 2  # the bound is not finite (a weight is not): all of da is NaN
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -319,9 +328,12 @@ def _fused_sa_bwd_plain(op: SAOperands, out: torch.Tensor, g: torch.Tensor):
     """Reference of the equality-select backward -> (da, dbc, dW_tail,
     db_tail).  A column of a pair is selected when the pair is inside the
     column's radius and its recomputed value equals ``out`` (the forward's
-    own output); every tied row gets the full cotangent.  relu' is h > 0;
-    the layer input and delta are rounded to the compute dtype before each
-    product; sums and db stay float32 (the TPU kernel's rounding points)."""
+    own output); every tied row gets the full cotangent.  relu' selects
+    where h > 0, as the kernel and the Pallas backward do (a product with
+    (h > 0) would spread a NaN or inf of a selected pair's chain to the
+    inactive units); the layer input and delta are rounded to the compute
+    dtype before each product; sums and db stay float32 (the TPU kernel's
+    rounding points)."""
     b, n, _ = op.pts4.shape
     p, h3 = op.centers.shape[1], op.r2.shape[0]
     cd = op.compute_dtype
@@ -339,11 +351,11 @@ def _fused_sa_bwd_plain(op: SAOperands, out: torch.Tensor, g: torch.Tensor):
         sel = (d2[:, None] < op.r2) & (hs[-1] == flat_out[row])
         delta = torch.where(sel, flat_g[row], 0.0)
         for li in range(len(tail_w) - 1, -1, -1):
-            delta = delta * (hs[li + 1] > 0)
+            delta = torch.where(hs[li + 1] > 0, delta, 0.0)
             dw[li] += torch.matmul(hs[li].to(cd).float().t(), delta.to(cd).float())
             db[li] += delta.sum(0)
             delta = torch.matmul(delta.to(cd).float(), tail_w[li].t())
-        d0 = delta * (hs[0] > 0)
+        d0 = torch.where(hs[0] > 0, delta, 0.0)
         da.index_put_((bi, j), d0, accumulate=True)
         dbc.index_put_((bi, pi), d0, accumulate=True)
     return da, dbc, dw, db
@@ -434,39 +446,59 @@ def fused_sa_argmax(op: SAOperands, active: Optional[torch.Tensor] = None):
     return out, jstar
 
 
-def da_exponent(w2: torch.Tensor, w3: torch.Tensor, g: torch.Tensor, p: int) -> torch.Tensor:
-    """S of B4's fixed-point da (csrc/fused_sa.cu's design note), an int32
-    (1,) tensor on g's device, computed there without a host sync: 62 - e,
-    where 2^e exceeds 1.01 P G and G = max row sum |W2| x max row sum |W3| x
-    max |g| bounds what one pair adds to a point (w2, w3 the rounded tail)."""
-    bound = w2.abs().sum(1).amax() * w3.abs().sum(1).amax() * g.abs().amax() * (1.01 * p)
-    return (62 - torch.frexp(bound.reshape(1)).exponent).to(torch.int32)
+def da_scale(w2: torch.Tensor, w3: torch.Tensor, g: torch.Tensor, p: int) -> torch.Tensor:
+    """Plain twin of B4's scale launch (csrc/fused_sa.cu ``da_scale_kernel``)
+    -> int32 (2,): [S, flags].  S = 62 - e of the fixed-point da, where 2^e
+    exceeds the bound 1.01 P G and G = max row sum |W2| x max row sum |W3| x
+    max finite |g| bounds what one pair adds to a point (w2, w3 the rounded
+    tail): a float64 product, summed along each row in order, so it cannot
+    overflow and S may be negative.  Flags: ``DA_G_NONFINITE`` when g holds
+    a NaN or inf (whose pairs the kernel flags one by one instead),
+    ``DA_BOUND_NONFINITE`` when the bound is not finite (then S = 0 and all
+    of da is NaN)."""
+    finite = torch.isfinite(g)
+    gmax = torch.where(finite, g.abs(), 0.0).amax().double()
+    r2 = w2.double().abs().cumsum(1)[:, -1].amax()
+    r3 = w3.double().abs().cumsum(1)[:, -1].amax()
+    bound = r2 * r3 * gmax * (1.01 * p)
+    ok = torch.isfinite(bound)
+    flags = torch.where(finite.all(), 0, DA_G_NONFINITE) + torch.where(ok, 0, DA_BOUND_NONFINITE)
+    s = torch.where(ok, 62 - torch.frexp(torch.where(ok, bound, 0.0)).exponent, 0)
+    return torch.stack([s, flags]).to(torch.int32)
 
 
-def _fused_sa_bwd_finish_plain(part: torch.Tensor, da_fx: torch.Tensor, da_exp: torch.Tensor):
+def _fused_sa_bwd_finish_plain(part: torch.Tensor, da_fx: torch.Tensor, da_state: torch.Tensor):
     dw3, dw2, db3, db2 = part.sum(0).split(PART_SPLIT)
-    da = torch.ldexp(da_fx.double(), -da_exp.double()).float()
+    da = torch.ldexp(da_fx.double(), -da_state[0].double()).float()
+    lanes = torch.arange(da.shape[-1], device=da.device)
+    flagged = (da_state[DA_STATE_WORDS:].long()[:, None] >> lanes) & 1
+    bad = flagged.bool().view(da.shape) | bool(da_state[1] & DA_BOUND_NONFINITE)
+    da = torch.where(bad, float("nan"), da)
     h1, h2, h3 = KERNEL_WIDTHS
     return da, [dw2.view(h1, h2), dw3.view(h2, h3)], [db2, db3]
 
 
-def fused_sa_bwd_finish(part: torch.Tensor, da_fx: torch.Tensor, da_exp: torch.Tensor):
+def fused_sa_bwd_finish(part: torch.Tensor, da_fx: torch.Tensor, da_state: torch.Tensor):
     """B4's second launch -> (da float32 shaped as da_fx, [dW2, dW3], [db2,
     db3]): ``part`` (rows, PART_WIDTH) summed over its rows in row order,
-    ``da_fx`` (int64) times 2^-S for S = ``da_exp``."""
-    if part.dim() != 2 or part.shape[1] != PART_WIDTH or da_exp.shape != (1,):
-        raise ValueError(f"fused_sa_bwd_finish: expected part (rows, {PART_WIDTH}) and da_exp (1,)")
+    ``da_fx`` (B, N, H1) int64 times 2^-S, with S, the flags and the
+    per-point flag words from ``da_state`` (int32, DA_STATE_WORDS + B N):
+    NaN where a flag bit is set, everywhere under DA_BOUND_NONFINITE."""
+    h1, h2, h3 = KERNEL_WIDTHS
+    if part.dim() != 2 or part.shape[1] != PART_WIDTH or da_fx.shape[-1] != h1 \
+            or da_state.shape != (DA_STATE_WORDS + da_fx.numel() // h1,):
+        raise ValueError(f"fused_sa_bwd_finish: expected part (rows, {PART_WIDTH}), da_fx (..., {h1}) and "
+                         f"da_state ({DA_STATE_WORDS} + points,)")
     if not part.is_cuda:
-        return _fused_sa_bwd_finish_plain(part, da_fx, da_exp)
+        return _fused_sa_bwd_finish_plain(part, da_fx, da_state)
     check_cuda("fused_sa_bwd_finish", part)
     check_cuda("fused_sa_bwd_finish", da_fx, dtype=torch.int64)
-    check_cuda("fused_sa_bwd_finish", da_exp, dtype=torch.int32)
-    h1, h2, h3 = KERNEL_WIDTHS
+    check_cuda("fused_sa_bwd_finish", da_state, dtype=torch.int32)
     da = torch.empty(da_fx.shape, dtype=torch.float32, device=part.device)
     dw2, dw3 = part.new_empty((h1, h2)), part.new_empty((h2, h3))
     db2, db3 = part.new_empty((h2,)), part.new_empty((h3,))
     FUSED_SA_BWD_FINISH_KERNEL.launch(part.device, part.data_ptr(), part.shape[0], da_fx.data_ptr(),
-                                      da_exp.data_ptr(), da_fx.numel(), da.data_ptr(), dw2.data_ptr(),
+                                      da_state.data_ptr(), da_fx.numel(), da.data_ptr(), dw2.data_ptr(),
                                       db2.data_ptr(), dw3.data_ptr(), db3.data_ptr())
     return da, [dw2, dw3], [db2, db3]
 
@@ -483,24 +515,26 @@ def fused_sa_bwd(op: SAOperands, active: Optional[torch.Tensor], out: torch.Tens
     if out.shape != (*op.bc.shape[:2], widths[-1]) or g.shape != out.shape:
         raise ValueError("fused_sa_bwd: out and g must be (B, P, H3)")
     check_cuda("fused_sa_bwd", out, g)
-    dbc, part, da_fx, da_exp = _bwd_first_launch(op, active, out, g, widths)
-    da, dw, db = fused_sa_bwd_finish(part, da_fx, da_exp)
+    dbc, part, da_fx, da_state = _bwd_first_launch(op, active, out, g, widths)
+    da, dw, db = fused_sa_bwd_finish(part, da_fx, da_state)
     return da, dbc, dw, db
 
 
 def _bwd_first_launch(op: SAOperands, active: torch.Tensor, out: torch.Tensor, g: torch.Tensor, widths):
-    """B4's first launch -> (dbc, its dW / db workspace, da in fixed point,
-    the exponent S): what ``fused_sa_bwd_finish`` takes."""
-    args, (w2, w3) = _kernel_args(op, active)
-    b, p = op.bc.shape[:2]
-    da_exp = da_exponent(w2, w3, g, p)
+    """B4's first launch (the scale, then the backward) -> (dbc, its dW / db
+    workspace, da in fixed point, the fixed-point state: S, the flags and
+    the per-point flag words): what ``fused_sa_bwd_finish`` takes."""
+    args, _ = _kernel_args(op, active)
+    b, n = op.a.shape[:2]
+    p = op.bc.shape[1]
+    da_state = torch.zeros(DA_STATE_WORDS + b * n, dtype=torch.int32, device=op.a.device)
     da_fx = torch.zeros(op.a.shape, dtype=torch.int64, device=op.a.device)
     dbc = torch.empty_like(op.bc)
     part = torch.empty((b * -(-p // TILE), PART_WIDTH), dtype=torch.float32, device=op.a.device)
     FUSED_SA_BWD_KERNEL.launch(
-        op.pts4.device, *args, out.data_ptr(), g.data_ptr(), da_exp.data_ptr(), da_fx.data_ptr(),
+        op.pts4.device, *args, out.data_ptr(), g.data_ptr(), da_state.data_ptr(), da_fx.data_ptr(),
         dbc.data_ptr(), part.data_ptr(), *_kernel_tail(op, widths))
-    return dbc, part, da_fx, da_exp
+    return dbc, part, da_fx, da_state
 
 
 class _FusedSA(torch.autograd.Function):

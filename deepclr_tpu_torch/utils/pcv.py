@@ -12,7 +12,22 @@ from typing import Dict, Optional, Tuple
 
 import numpy as np
 
-__all__ = ["PointCloudVisualizer"]
+__all__ = ["PointCloudVisualizer", "require_pyplot"]
+
+
+def require_pyplot(backend: Optional[str] = None):
+    """``matplotlib.pyplot`` for a figure or viewer CLI, under ``backend``
+    when given (before pyplot is imported); where matplotlib does not
+    import, exit with a one-line message that names it."""
+    try:
+        import matplotlib
+    except ImportError as err:
+        raise SystemExit(f"this command needs matplotlib, which does not import here: {err}") from None
+    if backend is not None:
+        matplotlib.use(backend)
+    import matplotlib.pyplot as plt
+
+    return plt
 
 
 class PointCloudVisualizer:

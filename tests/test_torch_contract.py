@@ -46,6 +46,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             "deepclr_tpu_torch.data.readers", "deepclr_tpu_torch.data.lmdb_reader", "deepclr_tpu_torch.utils.flops",
             "deepclr_tpu_torch.utils.profiling", "deepclr_tpu_torch.utils.tensor", "deepclr_tpu_torch.utils.factory",
             "deepclr_tpu_torch.utils.parsing", "deepclr_tpu_torch.utils.pcv"} <= set(modules)
+    assert {f"deepclr_tpu_torch.paper.{m}" for m in ("_runs", "kitti_odometry_table", "kitti_artificial_table",
+                                                     "modelnet40_table", "modelnet40_plots", "cloud_figures")} \
+        | {f"deepclr_tpu_torch.visualization.{m}" for m in ("show_kitti_odometry", "show_modelnet40", "view_dataflow",
+                                                            "view_loader_output", "view_scheduler")} <= set(modules)
     code = (
         "import importlib, json, sys\n"
         f"for m in {modules!r}: importlib.import_module(m)\n"
@@ -181,9 +185,9 @@ def test_model_variants_build_and_predict(change):
 
 
 def test_inference_entry_point_imports_without_yaml_or_matplotlib():
-    """The CLI modules, the evaluation package and the helpers import with
-    PyYAML, matplotlib and pandas unavailable (the card machine may lack
-    them)."""
+    """The CLI modules, the evaluation package, the helpers, the paper
+    tables and figures and the viewers import with PyYAML, matplotlib and
+    pandas unavailable (the card machine may lack them)."""
     code = (
         "import sys\n"
         "class Block:\n"
@@ -193,6 +197,11 @@ def test_inference_entry_point_imports_without_yaml_or_matplotlib():
         "sys.meta_path.insert(0, Block())\n"
         "import deepclr_tpu_torch.inference, deepclr_tpu_torch.evaluation, deepclr_tpu_torch.config\n"
         "import deepclr_tpu_torch.evaluation.cli, deepclr_tpu_torch.icp.cli, deepclr_tpu_torch.kitti_devkit.__main__\n"
+        "import deepclr_tpu_torch.paper.kitti_odometry_table, deepclr_tpu_torch.paper.kitti_artificial_table\n"
+        "import deepclr_tpu_torch.paper.modelnet40_table, deepclr_tpu_torch.paper.modelnet40_plots\n"
+        "import deepclr_tpu_torch.paper.cloud_figures, deepclr_tpu_torch.visualization.view_scheduler\n"
+        "import deepclr_tpu_torch.visualization.show_kitti_odometry, deepclr_tpu_torch.visualization.view_dataflow\n"
+        "import deepclr_tpu_torch.visualization.show_modelnet40, deepclr_tpu_torch.visualization.view_loader_output\n"
         "print(sorted(k for k in sys.modules if k.split('.')[0] in ('yaml', 'matplotlib', 'pandas')))\n"
     )
     env = dict(os.environ, PYTHONPATH=str(REPO))

@@ -237,19 +237,89 @@ def test_fused_sa_bwd_kernel_is_bit_equal_across_launches(dev, n, p, dense, dtyp
         assert torch.equal(x, y)
 
 
+def _bits(x):
+    return x.view(torch.int32 if x.dtype == torch.float32 else x.dtype)
+
+
 def test_fused_sa_bwd_finish_kernel_matches_plain(dev):
     """The finishing launch on a workspace and fixed-point da of random
-    values: dW / db within 1e-5 of the scale of the twin's sums (another
-    order), da bit-equal (one rounding of the same integers)."""
+    values and random flag words: dW / db within 1e-5 of the scale of the
+    twin's sums (another order), da bit-equal (one rounding of the same
+    integers, NaN at the same flagged entries), at a positive and a
+    negative S."""
     gen = torch.Generator().manual_seed(14)
     part = torch.randn(640, fused_sa.PART_WIDTH, generator=gen).to(dev)
     da_fx = torch.randint(-2 ** 62, 2 ** 62, (10, 1000, 32), generator=gen).to(dev)
-    da_exp = torch.tensor([40], dtype=torch.int32, device=dev)
-    got = fused_sa.fused_sa_bwd_finish(part, da_fx, da_exp)
-    ref = fused_sa._fused_sa_bwd_finish_plain(part, da_fx, da_exp)
-    assert torch.equal(got[0], ref[0])
-    for x, y in zip([*got[1], *got[2]], [*ref[1], *ref[2]]):
-        _assert_close_to_scale(x, y, 1e-5, "dw / db")
+    flags = torch.randint(-2 ** 31, 2 ** 31, (10 * 1000,), generator=gen, dtype=torch.int64)
+    flags = torch.where(torch.rand(10 * 1000, generator=gen) < 0.01, flags, 0).to(torch.int32)
+    for s in (40, -20):
+        da_state = torch.cat([torch.tensor([s, 0, 0, 0], dtype=torch.int32), flags]).to(dev)
+        got = fused_sa.fused_sa_bwd_finish(part, da_fx, da_state)
+        ref = fused_sa._fused_sa_bwd_finish_plain(part, da_fx, da_state)
+        assert torch.equal(_bits(got[0]), _bits(ref[0])) and torch.isnan(got[0]).sum() > 0
+        for x, y in zip([*got[1], *got[2]], [*ref[1], *ref[2]]):
+            _assert_close_to_scale(x, y, 1e-5, "dw / db")
+
+
+def _selected_entries(out, k):
+    """k entries of the cotangent whose column has a winner (out > 0), so
+    the equality select and relu' pass them, spread over cloud 0."""
+    hits = torch.nonzero(out[0] > 0)
+    return [(0, *hits[i * len(hits) // k].tolist()) for i in range(k)]
+
+
+# One NaN and one inf in g, each at a selected column: the kernel flags the
+# (point, lane) entries whose sums are not finite and writes NaN there, so
+# da is non-finite exactly where the twin's is; the other entries and
+# outputs stay within 1e-4 of their scale; two launches keep every bit,
+# NaN positions included.
+@pytest.mark.parametrize("n,p,dense", [(16384, 1024, False), (4096, 512, True)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_sa_bwd_kernel_non_finite_cotangent_matches_plain(dev, n, p, dense, dtype):
+    op, active = _sa_operands(n, p, dtype, 9, dev, False, dense)
+    out = fused_sa.fused_sa_core(op, active)
+    g = torch.randn(out.shape, generator=torch.Generator().manual_seed(10)).to(dev)
+    (i_nan, i_inf) = _selected_entries(out, 2)
+    g[i_nan], g[i_inf] = float("nan"), float("inf")
+    got = fused_sa.fused_sa_bwd(op, active, out, g)
+    ref = fused_sa._fused_sa_bwd_plain(op, fused_sa._fused_sa_plain(op), g)
+    bad, bad_ref = ~torch.isfinite(got[0]), ~torch.isfinite(ref[0])
+    assert bad.any() and torch.equal(bad, bad_ref)
+    _assert_close_to_scale(got[0][~bad], ref[0][~bad], 1e-4, "da")
+    for what, x, y in zip(["dbc", "dw2", "dw3", "db2", "db3"], [got[1], *got[2], *got[3]], [ref[1], *ref[2], *ref[3]]):
+        ok = torch.isfinite(x) & torch.isfinite(y)
+        _assert_close_to_scale(x[ok], y[ok], 1e-4, what)
+    again = fused_sa.fused_sa_bwd(op, active, out, g)
+    for x, y in zip([got[0], got[1], *got[2], *got[3]], [again[0], again[1], *again[2], *again[3]]):
+        assert torch.equal(_bits(x), _bits(y))
+
+
+# A cotangent whose float32 bound 1.01 P G overflows (a few selected entries
+# at about 4 FLT_MAX / (1.01 P row sums), so no output overflows): the
+# float64 bound gives a negative S, and da stays within 1e-4 of the twin's
+# scale.  The scale launch's S and flags equal its twin's.
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_sa_bwd_kernel_handles_a_float32_bound_that_overflows(dev, dtype):
+    op, active = _sa_operands(16384, 1024, dtype, 9, dev)
+    out = fused_sa.fused_sa_core(op, active)
+    g = torch.randn(out.shape, generator=torch.Generator().manual_seed(11)).to(dev)
+    w2, w3 = (w.double().cpu() for w in fused_sa._rounded_tail(op))
+    rows = w2.abs().sum(1).max() * w3.abs().sum(1).max()
+    big = float(4 * torch.finfo(torch.float32).max / (1.01 * 1024 * rows))
+    for k, idx in enumerate(_selected_entries(out, 4)):
+        g[idx] = big if k % 2 else -big
+    w2f, w3f = fused_sa._rounded_tail(op)
+    f32_bound = w2f.abs().sum(1).amax() * w3f.abs().sum(1).amax() * g.abs().amax() * (1.01 * 1024)
+    assert torch.isinf(f32_bound)
+    _, _, _, state = fused_sa._bwd_first_launch(op, active, out, g, fused_sa.KERNEL_WIDTHS)
+    want = fused_sa.da_scale(*(w.cpu() for w in fused_sa._rounded_tail(op)), g.cpu(), 1024)
+    assert torch.equal(state[:2].cpu(), want) and want[0] < 0 and want[1] == 0
+    got = fused_sa.fused_sa_bwd(op, active, out, g)
+    ref = fused_sa._fused_sa_bwd_plain(op, fused_sa._fused_sa_plain(op), g)
+    for what, x, y in zip(["da", "dbc", "dw2", "dw3", "db2", "db3"], [got[0], got[1], *got[2], *got[3]],
+                          [ref[0], ref[1], *ref[2], *ref[3]]):
+        assert torch.isfinite(y).all() and torch.isfinite(x).all(), what
+        _assert_close_to_scale(x, y, 1e-4, what)
 
 
 @pytest.mark.parametrize("b,m,n,c", [(5, 20480, 1024, 128), (2, 3000, 50, 40), (1, 0, 7, 3)])

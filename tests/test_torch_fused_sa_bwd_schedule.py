@@ -12,9 +12,11 @@ has a fixed order:
 
 * da: a warp sums consecutive pairs of one point in a float32 register and
   adds the sum, rounded to multiples of 2^-S, into an int64 entry
-  (``fused_sa.da_exponent`` gives S); the finishing launch converts the
-  integers to float32.  Integer addition is associative, so the order of
-  the atomics does not matter;
+  (``fused_sa.da_scale`` gives S); a sum that is not finite sets the
+  (point, lane) bit of a flag word instead; the finishing launch converts
+  the integers to float32 and writes NaN where a bit is set.  Integer
+  addition and OR are associative, so the order of the atomics does not
+  matter;
 * dbc and db: one row a warp, summed in warp order at the end of the block;
 * dW and db across blocks: each block stores its partial sums in its own
   workspace row (dW3 and dW2 summed pair by pair in list order); the
@@ -96,9 +98,9 @@ def _backprop(op, tail_w, acts, out, g, bb, p0, j, t):
     sel = (d2[:, None] < op.r2) & (h3 > 0) & (h3 == out[bb, pi])
     g3 = torch.where(sel, g[bb, pi], 0.0)
     d3 = g3.to(cd).float()
-    dl2 = torch.matmul(d3, tail_w[1].t()) * (h2 > 0)
+    dl2 = torch.where(h2 > 0, torch.matmul(d3, tail_w[1].t()), 0.0)  # relu' selects, as the kernel does
     d2r = dl2.to(cd).float()
-    d0 = torch.matmul(d2r, tail_w[0].t()) * (h1 > 0)
+    d0 = torch.where(h1 > 0, torch.matmul(d2r, tail_w[0].t()), 0.0)
     f = lambda x: x.numpy().astype(np.float32)  # noqa: E731
     return dict(h1=f(h1.to(cd).float()), h2=f(h2.to(cd).float()), d3=f(d3), d2=f(d2r), g3=f(g3), dl2=f(dl2),
                 d0=f(d0), live=(g3 != 0).any(-1).numpy())
@@ -106,7 +108,7 @@ def _backprop(op, tail_w, acts, out, g, bb, p0, j, t):
 
 def _block(op, active, tail_w, acts, out, g, bb, tile, scale):
     """One block -> (its workspace row, its dbc rows, its da flushes: (j,
-    int64 row) in the block's order)."""
+    int64 row, the row's non-finite lanes) in the block's order)."""
     n = op.pts4.shape[1]
     h1w, h2w, h3w = fused_sa.KERNEL_WIDTHS
     p0 = tile * TILE
@@ -116,7 +118,8 @@ def _block(op, active, tail_w, acts, out, g, bb, tile, scale):
     flushes = []
 
     def flush(j, v):
-        flushes.append((j, np.rint(v.astype(np.float64) * scale).astype(np.int64)))
+        bad = ~np.isfinite(v)
+        flushes.append((j, np.rint(np.where(bad, 0.0, v.astype(np.float64)) * scale).astype(np.int64), bad))
 
     for c in range(-(-n // CHUNK)):
         if not active[bb, c, tile]:
@@ -159,7 +162,7 @@ def _blocks(op, active, out, g):
     ntiles = -(-p // TILE)
     tail_w = fused_sa._rounded_tail(op)
     acts = _activations(op, tail_w)
-    exp = int(fused_sa.da_exponent(*tail_w, g, p)[0])
+    exp = int(fused_sa.da_scale(*tail_w, g, p)[0])
     blocks = [(bb, tile) for bb in range(b) for tile in range(ntiles)]
     rows = np.zeros((len(blocks), fused_sa.PART_WIDTH), np.float32)
     dbc = np.zeros((b, ntiles * TILE, h1w), np.float32)
@@ -167,7 +170,7 @@ def _blocks(op, active, out, g):
     for k, (bb, tile) in enumerate(blocks):
         rows[k], dbc[bb, tile * TILE:(tile + 1) * TILE], fl = _block(op, active, tail_w, acts, out, g, bb, tile,
                                                                      2.0 ** exp)
-        events.append([(bb, j, x) for j, x in fl])
+        events.append([(bb, j, x, bad) for j, x, bad in fl])
     return rows, dbc[:, :p], events, exp
 
 
@@ -184,13 +187,16 @@ def _emulate(op, active, out, g, blocks=None, order=None, float_atomics=False):
         events = [[e[m] for m in rng.permutation(len(e))] for e in events]
     if float_atomics:
         da = np.zeros((b, n, h1w), np.float32)
-        for bb, j, x in (e for blk in events for e in blk):
+        for bb, j, x, _ in (e for blk in events for e in blk):
             da[bb, j] = da[bb, j] + np.ldexp(x.astype(np.float64), -exp).astype(np.float32)
     else:
         fixed = np.zeros((b, n, h1w), np.int64)
-        for bb, j, x in (e for blk in events for e in blk):
+        flags = np.zeros((b, n), np.uint32)
+        for bb, j, x, bad in (e for blk in events for e in blk):
             fixed[bb, j] += x
-        da = np.ldexp(fixed.astype(np.float32), -exp)
+            flags[bb, j] |= np.uint32((bad.astype(np.uint64) << np.arange(h1w, dtype=np.uint64)).sum())
+        flagged = ((flags[..., None] >> np.arange(h1w, dtype=np.uint32)) & 1).astype(bool)
+        da = np.where(flagged, np.float32(np.nan), np.ldexp(fixed.astype(np.float32), -exp))
     segs = [np.zeros(fused_sa.PART_WIDTH, np.float32) for _ in range(SEGMENTS)]
     for r in range(len(rows)):
         segs[r % SEGMENTS] = segs[r % SEGMENTS] + rows[r]
@@ -211,6 +217,10 @@ def _close(got, want):
         assert x.shape == y.shape, name
         scale = max(1e-3, float(np.abs(y).max()))
         np.testing.assert_allclose(x, y, rtol=0, atol=TOL * scale, err_msg=name)
+
+
+def _bits(x):
+    return x.view(np.int32 if x.dtype == np.float32 else x.dtype).tobytes()
 
 
 @pytest.fixture(scope="module")
@@ -265,6 +275,39 @@ def test_finish_order_leaves_every_output_bit_equal(case):
     base = _flat(_emulate(op, active, out, g, blocks))
     for order in (1, 2, 3):
         for x, y in zip(_flat(_emulate(op, active, out, g, blocks, order=order)), base):
-            assert x.tobytes() == y.tobytes()
+            assert _bits(x) == _bits(y)
     floats = [_emulate(op, active, out, g, blocks, order=order, float_atomics=True)[0] for order in (1, 2, 3)]
     assert any(a.tobytes() != floats[0].tobytes() for a in floats[1:])
+
+
+# one NaN and one inf in g at entries some in-radius pair selects (the
+# equality select and relu' pass them), each alone
+@pytest.mark.parametrize("value", [np.nan, np.inf])
+def test_non_finite_cotangent_flags_exactly_the_twins_entries(case, value):
+    """A non-finite cotangent never reaches the fixed-point integers: the
+    flushes that carry it set their (point, lane) flag bits and the
+    finishing step writes NaN there.  The emulated da is non-finite exactly
+    where the plain twin's is, its other entries agree with the twin's
+    within 1e-5 of their scale, and every output keeps its bits under
+    three finish orders, NaN positions included.  S is the finite part's,
+    as without the non-finite entry; the scale flags the cotangent."""
+    _, op, active, out, g = case
+    tail_w = fused_sa._rounded_tail(op)
+    p = out.shape[1]
+    bb, t = 1, 9
+    g = g.clone()
+    g[bb, t, 5] = value
+    state = fused_sa.da_scale(*tail_w, g, p)
+    assert int(state[1]) == fused_sa.DA_G_NONFINITE
+    assert int(state[0]) == int(fused_sa.da_scale(*tail_w, torch.where(torch.isfinite(g), g, 0.0), p)[0])
+    blocks = _blocks(op, active, out, g)
+    got = _flat(_emulate(op, active, out, g, blocks))
+    twin = fused_sa._fused_sa_bwd_plain(op, out, g)
+    want = [twin[0].numpy(), twin[1].numpy(), *[w.numpy() for w in twin[2]], *[x.numpy() for x in twin[3]]]
+    bad, bad_twin = ~np.isfinite(got[0]), ~np.isfinite(want[0])
+    assert bad.any() and np.array_equal(bad, bad_twin)
+    scale = max(1e-3, float(np.abs(want[0][~bad_twin]).max()))
+    np.testing.assert_allclose(got[0][~bad], want[0][~bad], rtol=0, atol=TOL * scale)
+    for order in (1, 2):
+        for x, y in zip(_flat(_emulate(op, active, out, g, blocks, order=order)), got):
+            assert _bits(x) == _bits(y)

@@ -5,6 +5,7 @@ interpret mode, and the autograd Function's gradients against ``jax.grad``
 of ``deepclr_tpu.ops.fused_sa.ball_mlp_max``.  The same numpy inputs go
 through both."""
 import functools
+import math
 
 import numpy as np
 import pytest
@@ -253,3 +254,90 @@ def test_backward_mode_is_checked():
     w, bias, radius = _bundle(0)
     with pytest.raises(ValueError, match="backward"):
         ops.ball_mlp_max(xyz, xyz, [_t(x) for x in w], [_t(x) for x in bias], radius, backward="scan")
+
+
+# ---- non-finite cotangents and the fixed-point scale of B4's da ------------------------
+
+def _bound_exponent(w2, w3, g, p):
+    """S by Python floats: 62 - e with 2^e > 1.01 P G (frexp's e)."""
+    g = np.asarray(g, np.float64)
+    gmax = float(np.abs(g[np.isfinite(g)]).max())
+    r2 = max(sum(abs(float(x)) for x in row) for row in np.asarray(w2))
+    r3 = max(sum(abs(float(x)) for x in row) for row in np.asarray(w3))
+    return 62 - math.frexp(r2 * r3 * gmax * (1.01 * p))[1]
+
+
+def test_da_scale_flags_a_non_finite_bound_and_survives_float32_overflow():
+    """The scale flags a NaN or inf in g (its S is the finite part's), and a
+    non-finite weight as a non-finite bound; a bound whose float32 product
+    overflows (weights of 1e10, g of 1e20) gives the float64 exponent, a
+    negative S, where the float32 form gave inf and so S = 62."""
+    rng = np.random.default_rng(30)
+    w2 = rng.normal(size=(32, 32)).astype(np.float32) * 0.3
+    w3 = rng.normal(size=(32, 64)).astype(np.float32) * 0.3
+    g = rng.normal(size=(2, 64, 64)).astype(np.float32)
+    plain = fused_sa.da_scale(_t(w2), _t(w3), _t(g), 64)
+    assert plain.dtype == torch.int32 and plain.tolist() == [_bound_exponent(w2, w3, g, 64), 0]
+    for value in (np.nan, np.inf, -np.inf):
+        bad = g.copy()
+        bad[1, 7, 40] = value
+        assert fused_sa.da_scale(_t(w2), _t(w3), _t(bad), 64).tolist() == [plain[0].item(), fused_sa.DA_G_NONFINITE]
+    for value in (np.nan, np.inf):
+        bad_w = w3.copy()
+        bad_w[3, 5] = value
+        assert fused_sa.da_scale(_t(w2), _t(bad_w), _t(g), 64).tolist() == [0, fused_sa.DA_BOUND_NONFINITE]
+    big_w2, big_w3, big_g = w2 * np.float32(1e10), w3 * np.float32(1e10), g * np.float32(1e20)
+    f32_bound = (_t(big_w2).abs().sum(1).amax() * _t(big_w3).abs().sum(1).amax() * _t(big_g).abs().amax()
+                 * (1.01 * 64))
+    assert torch.isinf(f32_bound)
+    s = fused_sa.da_scale(_t(big_w2), _t(big_w3), _t(big_g), 64)
+    assert s.tolist() == [_bound_exponent(big_w2, big_w3, big_g, 64), 0] and s[0] < 0
+    assert fused_sa.da_scale(_t(w2), _t(w3), _t(np.zeros_like(g)), 64).tolist() == [62, 0]
+
+
+def test_bwd_finish_plain_writes_nan_where_flagged():
+    """The finishing step's twin: da is 2^-S times the integers, also for a
+    negative S, NaN at each flagged (point, lane) bit (bit 31 included) and
+    everywhere under a non-finite bound."""
+    gen = torch.Generator().manual_seed(31)
+    part = torch.randn(8, fused_sa.PART_WIDTH, generator=gen)
+    da_fx = torch.randint(-2 ** 40, 2 ** 40, (2, 5, 32), generator=gen)
+    state = torch.zeros(fused_sa.DA_STATE_WORDS + 10, dtype=torch.int32)
+    state[0] = -3
+    state[fused_sa.DA_STATE_WORDS + 6] = (1 << 4) | (1 << 31) - (1 << 32)  # point (1, 1): lanes 4 and 31
+    da = fused_sa.fused_sa_bwd_finish(part, da_fx, state)[0]
+    bad = torch.zeros(2, 5, 32, dtype=torch.bool)
+    bad[1, 1, 4] = bad[1, 1, 31] = True
+    assert torch.equal(~torch.isfinite(da), bad)
+    assert torch.equal(da[~bad], (da_fx.double() * 8).float()[~bad])
+    state[1] = fused_sa.DA_BOUND_NONFINITE
+    assert torch.isnan(fused_sa.fused_sa_bwd_finish(part, da_fx, state)[0]).all()
+
+
+# One NaN (g[0, 5, 3]) or one inf (g[1, 7, 40]) at a selected column: relu'
+# as a select keeps the twin's non-finite entries inside the Pallas
+# backward's in every output.  The Pallas kernel marks more: it also marks
+# points of the block that did not win (0 x NaN in its blocked one-hot
+# products).  Where both are finite they agree within the 1e-5 of scale of
+# test_bwd_plain_matches_pallas_bwd_kernel.
+@pytest.mark.parametrize("where,value", [((0, 5, 3), np.nan), ((1, 7, 40), np.inf)])
+def test_bwd_plain_non_finite_entries_are_within_the_pallas_ones(where, value):
+    xyz, feats, centers, mask, g = _case(1, False)
+    g[where] = value
+    w, bias, radius = _bundle(2)
+    jw, jb = tuple(map(jnp.asarray, w)), tuple(map(jnp.asarray, bias))
+    out_j = ball_mlp_max_pallas(xyz, centers, jw, jb, radius, features=feats, mask=mask,
+                                compute_dtype=jnp.float32, interpret=True)
+    ref = ball_mlp_max_bwd_pallas(xyz, centers, jw, jb, radius, g, out_j, features=feats, mask=mask,
+                                  compute_dtype=jnp.float32, interpret=True)
+    op = _port_operands(xyz, centers, w, bias, radius, feats, mask, torch.float32)
+    got = fused_sa.fused_sa_bwd(op, None, fused_sa.fused_sa_core(op), _t(g))
+    for name, x, y in zip(["da", "dbc", "dw2", "dw3", "db2", "db3"], [got[0], got[1], *got[2], *got[3]],
+                          [ref[0], ref[1], *ref[2], *ref[3]]):
+        x, y = x.numpy(), np.asarray(y)
+        bad_x, bad_y = ~np.isfinite(x), ~np.isfinite(y)
+        assert bad_x.any() and not (bad_x & ~bad_y).any(), name
+        both = ~bad_x & ~bad_y
+        scale = max(1e-3, float(np.abs(y[both]).max()))
+        np.testing.assert_allclose(x[both], y[both], atol=1e-5 * scale, rtol=0, err_msg=name)
+    assert int((~np.isfinite(got[0].numpy())).sum()) == {True: 16, False: 18}[bool(np.isnan(value))]
