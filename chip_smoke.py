@@ -35,9 +35,13 @@ Phases, in order; any failure raises and exits non-zero:
    within 1e-4 of the twin's scale; the finishing launch against its twin
    on the backward's own workspace (da bit-equal, dW / db within 1e-5 of
    their scale, the scale launch's S and flags equal its twin's); the
-   gather backward at MotionEmbedding's train shape (5 x 20480 rows of
-   128 into 1024) twice bit-equal, equal bit for bit to the CPU's
-   sequential scatter_add and within 1e-5 of the scale of the card's;
+   gather backward (its run-index launch equal to its twin, the sum twice
+   bit-equal, equal bit for bit to the CPU's sequential scatter_add and
+   within 1e-5 of the scale of the card's) at MotionEmbedding's train
+   shape (5 x 20480 rows of 128 into 1024) on a uniform index and on the
+   kNN index of a ray-cast train batch (6 HDL-64 scans along a drive), and
+   at B5's backward scatter (4 x 65536 rows of 32 into 16384; the
+   all-masked cloud is one run of 65536), each index's runs printed;
 4. serving path: the flagship KITTI model (random weights from seed 0)
    through ModelInferenceHelper.predict_batch on 16 pairs of 16384-point
    KITTI-like clouds, and 3 sequential frames through encode_register;
@@ -65,7 +69,11 @@ Phases, in order; any failure raises and exits non-zero:
    B4 (and B2) on the dense case beside the sparse one; min-d^2 also
    without the bitmap, and with a second bound at the float32 issue rate;
    the counts the fused forward's design rests on (kept chunks a tile,
-   in-radius pairs a kept (chunk, tile) block);
+   in-radius pairs a kept (chunk, tile) block); B4's scale launch alone
+   (torch.profiler); the gather backward on the uniform and the ray-cast
+   kNN index: back to back, on the device, each of its two launches on the
+   device, beside index_put_(accumulate=True) under
+   torch.use_deterministic_algorithms(True) timed the same ways;
 7. scenario inference: packs written with the port's PackWriter into a
    temporary directory (two 8-frame KITTI-like sequences of 120000 points a
    frame, about an HDL-64 scan, poses advancing by small random rigid
@@ -113,7 +121,9 @@ Phases, in order; any failure raises and exits non-zero:
    micro-step (CUDA events around train_step) beside the loader wait,
    validation ms a batch, timing.timing(cfg, sequential=True) on the
    validation pack, and B1-B4 device time against their bounds with the
-   culling counts on a training batch of each recipe;
+   culling counts on a training batch of each recipe, with B4's scale
+   launch alone and the gather backward at the batch's kNN index (gated as
+   in phase 3, its runs printed);
 9. the ICP baselines and scoring without JAX (in a temporary directory): a
    KITTI sequence pack of ray-cast HDL-64 scans (120000 points, every 2nd
    kept, so ~60000 a frame), cut only in frame count (ICP_FRAMES), goes
@@ -301,9 +311,10 @@ TPU_KERNELS = {
 OWN_KERNELS = {
     "fused_sa_bwd_finish": ("deepclr_tpu_torch/csrc/fused_sa.cu", f"{FUSED_SA_PALLAS}:787"),
     "gather_bwd": ("deepclr_tpu_torch/csrc/gather.cu", "deepclr_tpu/ops/grouping.py:45"),
+    "gather_bwd_index": ("deepclr_tpu_torch/csrc/gather.cu", "deepclr_tpu/ops/grouping.py:45"),
 }
 SERVING_KERNELS = ("fps", "min_d2", "fused_sa")
-TRAIN_KERNELS = ("fps", "min_d2", "fused_sa", "fused_sa_bwd", "fused_sa_bwd_finish", "gather_bwd")
+TRAIN_KERNELS = ("fps", "min_d2", "fused_sa", "fused_sa_bwd", "fused_sa_bwd_finish", "gather_bwd_index", "gather_bwd")
 FPS_BATCHES = (32, 10, 1)     # FPS's path shapes: serving encode (2B), train encode (2B), sequential step
 SCENE_POINTS = 120_000        # a frame of about an HDL-64 scan: subsampled to NPTS
 SCENE_FRAMES = 8              # frames a sequence: 7 registrations
@@ -526,7 +537,10 @@ def check_kernels(model, dev):
         errs["fused_sa_bwd_finish"] = check_bwd_finish(sa_op, active, out, g)
         check_winner_grads_repeat(sa_op, jstar, g, f"{dtype} 4 x {NPTS}")
         errs["fused_sa_bwd"] = max(worst, check_bwd_dense(model, dev, dtype))
-    errs["gather_bwd"] = check_gather_bwd(dev)
+    errs["gather_bwd"] = max(check_gather_bwd(*gather_bwd_operands(dev), "uniform"),
+                             check_gather_bwd(*raycast_gather_operands(model, dev), "ray-cast kNN"),
+                             check_gather_bwd(*winner_gather_operands(sa_op, jstar), "B5 _winner_grads"))
+    errs["gather_bwd_index"] = 0.0  # check_gather_bwd: equal to its twin, or raised
     return errs
 
 
@@ -679,32 +693,99 @@ def check_winner_grads_repeat(sa_op, jstar, g, what):
 def gather_bwd_operands(dev, b=TRAIN_BATCH, p=1024, k=20, c=128, seed=6):
     """MotionEmbedding's gather at the train path's shapes: B pairs, P
     template centres, k neighbours among P source centres, the layer-1 width
-    of the flagship's embedding (128); the cotangent of the gathered rows."""
+    of the flagship's embedding (128); the cotangent of the gathered rows.
+    The index is uniform."""
     gen = torch.Generator().manual_seed(seed)
     idx = torch.randint(0, p, (b, p * k), generator=gen).to(dev)
     g = torch.randn(b, p * k, c, generator=gen).to(dev)
     return g, idx, p
 
 
-def check_gather_bwd(dev):
-    """The gather backward's kernel at MotionEmbedding's train shape:
-    twice bit-equal, equal to the CPU's sequential scatter_add bit for bit
-    (both add in ascending order), and within 1e-5 of the scale of the
-    card's own scatter_add (atomics).  Returns the largest absolute error
-    against the card's scatter_add."""
+_RAYCAST_KNN = {}
+
+
+def motion_gather_operands(model, centers, seed):
+    """MotionEmbedding's gather on a batch's set-abstraction centres (2B
+    clouds, templates first): the model's k nearest source centres of each
+    template centre (ops.knn, as models/deepclr.py calls it) flattened to
+    (B, P k), and a seeded cotangent of the embedding's layer-1 width."""
+    from deepclr_tpu_torch import ops
+
+    half = centers.shape[0] // 2
+    idx = ops.knn(centers[:half], centers[half:], model.merge.k)[0].reshape(half, -1).long().contiguous()
+    c = model.merge.mlp.dense(0).weight.shape[0]
+    g = torch.randn(*idx.shape, c, generator=torch.Generator().manual_seed(seed)).to(centers.device)
+    return g, idx, centers.shape[1]
+
+
+def raycast_gather_operands(model, dev):
+    """MotionEmbedding's gather on a ray-cast train batch: TRAIN_BATCH + 1
+    HDL-64 scans along a drive (every 2nd point kept, as the KITTI
+    converter keeps them, then NPTS drawn), consecutive frames paired.  A
+    real kNN index is skewed: centres near the sensor are named by many
+    template centres.  The centres (FPS, Morton sorts) do not depend on
+    the weights, so the operands are made once."""
+    if not _RAYCAST_KNN:
+        from deepclr_tpu_torch.data.synthetic import drive
+
+        rng = np.random.default_rng(70)
+        frames = []
+        for _, scan in drive(rng, TRAIN_BATCH + 1, SCAN_POINTS):
+            kept = scan[::2]
+            frames.append(kept[rng.choice(len(kept), NPTS, replace=False)])
+        pts = torch.from_numpy(np.stack(frames)).to(dev)
+        both = torch.cat([pts[:-1], pts[1:]])
+        with torch.no_grad():
+            op = sa_operands(model, both, torch.ones(both.shape[:2], dtype=torch.bool, device=dev))
+            _RAYCAST_KNN["operands"] = motion_gather_operands(model, op["centers"], seed=71)
+    return _RAYCAST_KNN["operands"]
+
+
+def winner_gather_operands(sa_op, jstar, seed=72):
+    """B5's backward scatter as _winner_grads forms it: every (centre,
+    column) winner's row of H1 layer-1 cotangents into the cloud's points
+    (no winner: row 0)."""
+    b, p, h3 = jstar.shape
+    n, h1 = sa_op.a.shape[1:]
+    g = torch.randn(b, p * h3, h1, generator=torch.Generator().manual_seed(seed)).to(jstar.device)
+    return g, jstar.clamp(min=0).long().view(b, p * h3).contiguous(), n
+
+
+def run_lengths(idx, n):
+    """A gather index's runs: the mean and largest count of a named row,
+    and the rows no index names."""
+    counts = torch.zeros(idx.shape[0], n, dtype=torch.int64, device=idx.device).scatter_add_(
+        1, idx, torch.ones_like(idx))
+    named = counts > 0
+    return {"mean": counts[named].double().mean().item(), "max": int(counts.max()),
+            "rows_unnamed": int((~named).sum()), "rows": counts.numel()}
+
+
+def check_gather_bwd(g, idx, n, what):
+    """The gather backward's two launches on one index: the run index equal
+    to its twin's, the sum twice bit-equal, equal bit for bit to the CPU's
+    sequential scatter_add (both add in ascending order), and within 1e-5
+    of the scale of the card's own scatter_add (atomics).  Prints the
+    index's run lengths.  Returns the largest absolute error against the
+    card's scatter_add."""
     from deepclr_tpu_torch.ops import grouping
 
-    g, idx, n = gather_bwd_operands(dev)
+    perm, offsets = grouping.gather_bwd_index(idx, n)
+    twin = grouping._gather_bwd_index_plain(idx, n, grouping.segment_length(n))
+    index_equal = torch.equal(perm, twin[0]) and torch.equal(offsets, twin[1])
     got = grouping.gather_points_grad(g, idx, n)
-    check_repeat(f"gather_bwd {tuple(g.shape)} -> {n} rows", got, grouping.gather_points_grad(g, idx, n))
-    cpu = grouping.gather_points_grad(g.cpu(), idx.cpu(), n)
+    check_repeat(f"gather_bwd {what} {tuple(g.shape)} -> {n} rows", got, grouping.gather_points_grad(g, idx, n))
+    equal_cpu = torch.equal(bits(got.cpu()), bits(grouping.gather_points_grad(g.cpu(), idx.cpu(), n)))
     ref = grouping._gather_points_grad_plain(g, idx, n)
     err = (got - ref).abs().max().item()
     scale = ref.abs().max().item()
-    emit({"check": "gather_bwd", "shape": list(g.shape), "rows": n, "equal_to_cpu": bool(torch.equal(got.cpu(), cpu)),
-          "max_abs_err_vs_card_scatter_add": err, "scale": scale, "tolerance": 1e-5 * scale})
-    if not torch.equal(got.cpu(), cpu) or not err <= 1e-5 * scale:
-        raise AssertionError(f"gather_bwd: differs from the CPU's scatter_add or by {err} from the card's")
+    emit({"check": "gather_bwd", "what": what, "shape": list(g.shape), "rows": n, "runs": run_lengths(idx, n),
+          "segment_length": grouping.segment_length(n), "index_equal_to_twin": index_equal,
+          "equal_to_cpu": equal_cpu, "max_abs_err_vs_card_scatter_add": err, "scale": scale,
+          "tolerance": 1e-5 * scale})
+    if not index_equal or not equal_cpu or not err <= 1e-5 * scale:
+        raise AssertionError(f"gather_bwd {what}: run index equal to its twin {index_equal}, equal to the CPU's "
+                             f"scatter_add {equal_cpu}, {err} from the card's")
     return err
 
 
@@ -1104,15 +1185,16 @@ def time_train(dev, model, opt, loss_fn, metric_fns, batches):
             plain_ms=cuda_ms(lambda: fused_sa._fused_sa_bwd_plain(sa_op, out, g), reps=3),
             bound=bwd_bound(sa_op, active, out, g, pairs, points_hit)),
         "fused_sa_bwd_finish": finish_timing(sa_op, active, out, g),
-        "gather_bwd": gather_bwd_timing(dev),
     }
+    scale = da_scale_timing(sa_op, active, out, g)
+    kernels["gather_bwd"], kernels["gather_bwd_index"] = gather_bwd_timing(dev, model)
     dense = bwd_dense_timing(model, dev)
     metrics = {"train_micro_step_ms": micro_ms, "train_micro_step_ms_each": times, "bwd_dense": dense,
                "train_pairs_per_s": TRAIN_BATCH / (micro_ms / 1e3), "train_batch_pairs": TRAIN_BATCH,
                "train_accumulation_steps": 2, "train_in_radius_pairs": pairs,
                "train_in_radius_pairs_per_centre": pairs / (b * p),
                "train_visited_block_share": active.float().mean().item(),
-               "train_culling": culling_counts(sa_op, active, pairs),
+               "train_culling": culling_counts(sa_op, active, pairs), "da_scale_kernel": scale,
                # B2 at B5's shape, for the comparison of the two
                "fused_sa_train_shape_ms": kernel_ms(lambda: fused_sa.fused_sa_core(sa_op, active), 50),
                "fused_sa_train_shape_device_ms": device_ms(lambda: fused_sa.fused_sa_core(sa_op, active), 50)}
@@ -1147,46 +1229,111 @@ def finish_timing(sa_op, active, out, g):
         library_ms=None, rows=part.shape[0])
 
 
-def gather_bwd_timing(dev):
-    """The gather backward at MotionEmbedding's train shape: the wrapper
-    (stable sort, CSR offsets, the kernel), its plain twin (scatter_add_,
-    atomics on the card), its bound (g and the indices read once, the rows
-    written once), and library calls of the same sum: index_add_ over the
-    flattened rows (atomics), and the two that are deterministic, so the
-    same function as the kernel's, under
-    torch.use_deterministic_algorithms(True): index_put_(accumulate=True)
-    (the kernels line's library_ms) and torch.gather's own backward, each
-    timed as the wrapper is (back to back, and on the device alone)."""
+def da_scale_timing(sa_op, active, out, g, reps=20):
+    """B4's scale launch alone (da_scale_kernel, which B4's entry point
+    launches first, one a B4 call): its device time a launch from
+    torch.profiler over ``reps`` B4 first launches, and its bound (g read
+    once, W2 and W3 read once for their row sums, the 16-byte state
+    written).  It has no library counterpart."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from deepclr_tpu_torch.ops import fused_sa
+
+    launch = lambda: fused_sa._bwd_first_launch(sa_op, active, out, g, fused_sa.KERNEL_WIDTHS)  # noqa: E731
+    launch()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            launch()
+        torch.cuda.synchronize()
+    rows = [e for e in prof.key_averages() if "da_scale_kernel" in e.key]
+    if len(rows) != 1 or rows[0].count != reps:
+        raise AssertionError(f"da_scale timing: {[(e.key, e.count) for e in rows]} in the trace, not {reps} launches")
+    w2, w3 = fused_sa._rounded_tail(sa_op)
+    bound_ms, bound_by = bound(nbytes(g, w2, w3) + 16, float(g.numel()))
+    return {"device_ms": rows[0].self_device_time_total / rows[0].count / 1e3, "launches_per_bwd": 1,
+            "bound_ms": bound_ms, "bound_by": bound_by, "g_shape": list(g.shape), "library_ms": None}
+
+
+def gather_bwd_case_timing(dev, g, idx, n):
+    """The gather backward on one index: the wrapper back to back and on the
+    device alone, each of its launches on the device alone, its bound (g
+    and the indices read once, the rows written once), and the same sum by
+    index_put_(accumulate=True) under torch.use_deterministic_algorithms(True)
+    (the library's deterministic form), timed as the wrapper is."""
     from deepclr_tpu_torch.ops import grouping
 
-    g, idx, n = gather_bwd_operands(dev)
     b, m, c = g.shape
+    perm, offsets = grouping.gather_bwd_index(idx, n)
     flat_idx = (idx + torch.arange(b, device=dev)[:, None] * n).reshape(-1)
     flat_g = g.reshape(-1, c)
     timing = dict(
         ms=kernel_ms(lambda: grouping.gather_points_grad(g, idx, n), 50),
         device_ms=device_ms(lambda: grouping.gather_points_grad(g, idx, n), 50),
-        plain_ms=cuda_ms(lambda: grouping._gather_points_grad_plain(g, idx, n), reps=5),
-        index_add_ms=cuda_ms(lambda: torch.zeros(b * n, c, device=dev).index_add_(0, flat_idx, flat_g), reps=5),
-        bound=bound(nbytes(g, idx) + b * n * c * 4, float(b * m * c)), shape=[b, m, n, c])
-    x = torch.zeros(b, n, c, device=dev, requires_grad=True)
-    gathered = torch.gather(x, 1, idx[..., None].expand(-1, -1, c))
-    library = {
-        "index_put": lambda: torch.zeros(b * n, c, device=dev).index_put_((flat_idx,), flat_g, accumulate=True),
-        "gather_backward": lambda: torch.autograd.grad(gathered, x, g, retain_graph=True),
-    }
+        index_device_ms=device_ms(lambda: grouping.gather_bwd_index(idx, n), 50),
+        sum_device_ms=device_ms(lambda: grouping.gather_bwd_sum(g, perm, offsets, n), 50),
+        bound=bound(nbytes(g, idx) + b * n * c * 4, float(b * m * c)), shape=[b, m, n, c],
+        runs=run_lengths(idx, n))
     saved = torch.are_deterministic_algorithms_enabled()
     torch.use_deterministic_algorithms(True)
     try:
-        for name, fn in library.items():
-            timing[f"deterministic_{name}_ms"] = kernel_ms(fn, 20)
-            timing[f"deterministic_{name}_device_ms"] = device_ms(fn, 20)
+        put = lambda: torch.zeros(b * n, c, device=dev).index_put_((flat_idx,), flat_g, accumulate=True)  # noqa: E731
+        timing["deterministic_index_put_ms"] = kernel_ms(put, 20)
+        timing["deterministic_index_put_device_ms"] = device_ms(put, 20)
+    finally:
+        torch.use_deterministic_algorithms(saved)
+    timing["beats_index_put_on_device"] = timing["device_ms"] < timing["deterministic_index_put_device_ms"]
+    timing["within_twice_bound"] = timing["device_ms"] <= 2 * timing["bound"][0]
+    return timing
+
+
+def gather_bwd_timing(dev, model):
+    """The gather backward at MotionEmbedding's train shape: on the uniform
+    index (the kernels line's figures) and on a ray-cast train batch's kNN
+    index (gather_bwd_case_timing), the wrapper's plain twin (scatter_add_,
+    atomics on the card), index_add_ over the flattened rows (atomics) and
+    torch.gather's own backward under torch.use_deterministic_algorithms(True)
+    on the uniform index; and the run-index launch alone against its twin
+    (torch.sort and searchsorted a segment), with its bound (the int64
+    index read once, perm and the offsets written once).  Returns the
+    kernels line's rows of gather_bwd and gather_bwd_index."""
+    from deepclr_tpu_torch.ops import grouping
+
+    g, idx, n = gather_bwd_operands(dev)
+    b, m, c = g.shape
+    timing = gather_bwd_case_timing(dev, g, idx, n)
+    # clones: the cached operands may be inference tensors (phase 3)
+    rg, ridx, rn = (t.clone() if isinstance(t, torch.Tensor) else t for t in raycast_gather_operands(model, dev))
+    raycast = gather_bwd_case_timing(dev, rg, ridx, rn)
+    flat_idx = (idx + torch.arange(b, device=dev)[:, None] * n).reshape(-1)
+    timing.update(
+        plain_ms=cuda_ms(lambda: grouping._gather_points_grad_plain(g, idx, n), reps=5),
+        index_add_ms=cuda_ms(lambda: torch.zeros(b * n, c, device=dev).index_add_(0, flat_idx, g.reshape(-1, c)),
+                             reps=5))
+    x = torch.zeros(b, n, c, device=dev, requires_grad=True)
+    gathered = torch.gather(x, 1, idx[..., None].expand(-1, -1, c))
+    saved = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        fn = lambda: torch.autograd.grad(gathered, x, g, retain_graph=True)  # noqa: E731
+        timing["deterministic_gather_backward_ms"] = kernel_ms(fn, 20)
+        timing["deterministic_gather_backward_device_ms"] = device_ms(fn, 20)
     finally:
         torch.use_deterministic_algorithms(saved)
     timing["library_ms"] = timing["deterministic_index_put_ms"]
-    emit({"timing": "gather_bwd", **{k: v for k, v in timing.items() if k != "bound"},
-          "bound_ms": timing["bound"][0], "library_ms_is": "index_put_(accumulate=True), deterministic"})
-    return timing
+    lseg = grouping.segment_length(n)
+    perm, offsets = grouping.gather_bwd_index(idx, n)
+    index = dict(ms=kernel_ms(lambda: grouping.gather_bwd_index(idx, n), 50),
+                 device_ms=timing["index_device_ms"],
+                 plain_ms=cuda_ms(lambda: grouping._gather_bwd_index_plain(idx, n, lseg), reps=5),
+                 bound=bound(nbytes(idx, perm, offsets), 0.0), library_ms=None, segment_length=lseg,
+                 segments=offsets.shape[1])
+    emit({"timing": "gather_bwd", "uniform": {k: v for k, v in timing.items() if k != "bound"},
+          "raycast_knn": {k: v for k, v in raycast.items() if k != "bound"},
+          "bound_ms": timing["bound"][0], "raycast_bound_ms": raycast["bound"][0],
+          "library_ms_is": "index_put_(accumulate=True), deterministic",
+          "index_launch": {k: v for k, v in index.items() if k != "bound"}, "index_bound_ms": index["bound"][0]})
+    return timing, index
 
 
 def bwd_dense_timing(model, dev):
@@ -1741,7 +1888,10 @@ def loader_rates(cfg, source):
 def density_kernels(model, batch, dev, tag):
     """B1-B4 on one training batch of the path (2B clouds): B2 and B4
     against their twins (check_fwd_bwd), device time, bound, and the counts
-    the fused kernels' design rests on."""
+    the fused kernels' design rests on; B4's scale launch alone; the gather
+    backward at MotionEmbedding's kNN index of the batch's centres, gated
+    as in phase 3 (check_gather_bwd), with its runs."""
+    from deepclr_tpu_torch import ops
     from deepclr_tpu_torch.ops import fps, fused_sa
 
     both = torch.cat([torch.from_numpy(batch["template"]), torch.from_numpy(batch["source"])]).to(dev)
@@ -1764,9 +1914,16 @@ def density_kernels(model, batch, dev, tag):
         "fused_sa_bwd": (lambda: fused_sa.fused_sa_bwd(sa_op, active, out, g),
                          bwd_bound(sa_op, active, out, g, pairs, points_hit)),
     }
+    # MotionEmbedding's gather backward at this batch's kNN index
+    gg, gidx, gn = motion_gather_operands(model, op["centers"], seed=73)
+    gather_err = check_gather_bwd(gg, gidx, gn, f"{tag} kNN")
+    rows["gather_bwd"] = (lambda: ops.gather_points_grad(gg, gidx, gn),
+                          bound(nbytes(gg, gidx) + gidx.shape[0] * gn * gg.shape[2] * 4, float(gg.numel())))
     kernels = {k: {"device_ms": device_ms(fn, 20), "bound_ms": bd[0], "bound_by": bd[1]}
                for k, (fn, bd) in rows.items()}
-    return {"clouds": b, "points": n, "npoint": p, "kernels": kernels,
+    kernels["gather_bwd"]["runs"] = run_lengths(gidx, gn)
+    kernels["da_scale_kernel"] = da_scale_timing(sa_op, active, out, g)
+    return {"clouds": b, "points": n, "npoint": p, "kernels": kernels, "gather_bwd_max_abs_err": gather_err,
             "max_abs_err": {"fused_sa": fwd_err, "fused_sa_bwd": bwd_err}, "in_radius_pairs": pairs,
             "in_radius_pairs_per_centre": pairs / (b * p), "culling": culling_counts(sa_op, active, pairs)}
 

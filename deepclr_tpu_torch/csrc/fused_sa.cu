@@ -649,27 +649,43 @@ constexpr int kScaleBlocks = 264;  // two a SM at most
 // order-free; the last block to take a ticket computes the bound 1.01 P x
 // max row sum |W2| x max row sum |W3| x max finite |g| in float64 (rows
 // summed in column order) and S = 62 - e with 2^e > bound (62 for a zero
-// bound).  Bound: bytes (g read once).  ops/fused_sa.py::da_scale is its
-// twin.
+// bound).  Bound: bytes (g read once), so g is read as float4 with several
+// loads in flight a thread, and the last block stages W2 and W3 in shared
+// memory in one round of loads before its 64 threads sum the rows, which
+// keeps dependent global loads off its tail.  ops/fused_sa.py::da_scale is
+// its twin.
 __global__ void __launch_bounds__(kScaleThreads)
 da_scale_kernel(const float* __restrict__ g, long long n_g, const float* __restrict__ w2,
                 const float* __restrict__ w3, int p, int* __restrict__ state) {
   __shared__ unsigned s_max[kScaleThreads / 32];
   __shared__ int s_nonfinite[kScaleThreads / 32];
   __shared__ double s_rows[64];
+  __shared__ float s_w[32 * 32 + 32 * 64];
   __shared__ bool s_last;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   unsigned mx = 0u;
   int nonfinite = 0;
-  for (long long i = (long long)blockIdx.x * kScaleThreads + threadIdx.x; i < n_g;
-       i += (long long)gridDim.x * kScaleThreads) {
-    const float v = fabsf(g[i]);
+  auto take = [&](float x) {
+    const float v = fabsf(x);
     if (isfinite(v)) {
       mx = max(mx, __float_as_uint(v));
     } else {
       nonfinite = 1;
     }
+  };
+  // float4 loads, several in flight a thread; the order of a max is free
+  const long long n4 = (reinterpret_cast<uintptr_t>(g) & 15) == 0 ? n_g / 4 : 0;
+  const long long stride = (long long)gridDim.x * kScaleThreads;
+#pragma unroll 4
+  for (long long i = (long long)blockIdx.x * kScaleThreads + threadIdx.x; i < n4; i += stride) {
+    const float4 v = reinterpret_cast<const float4*>(g)[i];
+    take(v.x);
+    take(v.y);
+    take(v.z);
+    take(v.w);
   }
+  for (long long i = 4 * n4 + (long long)blockIdx.x * kScaleThreads + threadIdx.x; i < n_g; i += stride)
+    take(g[i]);
   mx = __reduce_max_sync(kFull, mx);
   nonfinite = __reduce_or_sync(kFull, nonfinite);
   if (lane == 0) {
@@ -689,10 +705,13 @@ da_scale_kernel(const float* __restrict__ g, long long n_g, const float* __restr
   }
   __syncthreads();
   if (!s_last) return;
-  // rows 0-31 of W2 (32 x 32), then rows 0-31 of W3 (32 x 64)
+  // W2 (32 x 32) and W3 (32 x 64) staged by the whole block in one round of
+  // loads, then each row summed in column order by its own thread
+  for (int i = threadIdx.x; i < 32 * 32 + 32 * 64; i += kScaleThreads) s_w[i] = i < 32 * 32 ? w2[i] : w3[i - 32 * 32];
+  __syncthreads();
   if (threadIdx.x < 64) {
     const int r = threadIdx.x & 31, width = threadIdx.x < 32 ? 32 : 64;
-    const float* row = threadIdx.x < 32 ? w2 + r * 32 : w3 + r * 64;
+    const float* row = threadIdx.x < 32 ? s_w + r * 32 : s_w + 32 * 32 + r * 64;
     double acc = 0.0;
     for (int c = 0; c < width; ++c) acc += fabs((double)row[c]);
     s_rows[threadIdx.x] = acc;

@@ -136,7 +136,8 @@ def test_cpu_path_runs_plain_versions_and_counts_no_launch():
     y = ModelInferenceHelper(model, num_points=256).predict_batch(clouds[:1], clouds[1:])
     assert y.shape == (1, 8) and np.isfinite(y).all()
     assert ops.launch_counts() == {"fps": 0, "min_d2": 0, "fused_sa": 0, "fused_sa_argmax": 0,
-                                   "fused_sa_bwd": 0, "fused_sa_bwd_finish": 0, "gather_bwd": 0}
+                                   "fused_sa_bwd": 0, "fused_sa_bwd_finish": 0, "gather_bwd_index": 0,
+                                   "gather_bwd": 0}
 
 
 def test_init_params_is_seeded():

@@ -322,18 +322,34 @@ def test_fused_sa_bwd_kernel_handles_a_float32_bound_that_overflows(dev, dtype):
         _assert_close_to_scale(x, y, 1e-4, what)
 
 
-@pytest.mark.parametrize("b,m,n,c", [(5, 20480, 1024, 128), (2, 3000, 50, 40), (1, 0, 7, 3)])
-def test_gather_bwd_kernel_equals_the_cpu_sum(dev, b, m, n, c):
-    """The gather backward (CSR by a stable sort, one warp a row) adds in
-    ascending order, as the CPU's scatter_add does: equal bit for bit, and
-    twice the same; MotionEmbedding's train shape, a narrow ragged one with
-    duplicates, and no index at all."""
+# MotionEmbedding's train shape; a narrow ragged one with duplicates; no
+# index at all (every row unnamed), narrow and at C = 128; one row named by
+# every m of cloud 0 (a run of 40000 over 313 segments of the run index,
+# ten passes of 32, beyond any tile); B5's backward scatter (_winner_grads at the flagship's
+# widths), uniform and as an all-masked cloud's winners (one run of 65536);
+# the float4 edges C = 4, 33 and 128
+@pytest.mark.parametrize("b,m,n,c,kind", [
+    (5, 20480, 1024, 128, "uniform"), (2, 3000, 50, 40, "uniform"), (1, 0, 7, 3, "uniform"),
+    (2, 0, 1024, 128, "uniform"), (2, 40000, 1024, 128, "one_row"), (4, 65536, 16384, 32, "uniform"),
+    (2, 65536, 16384, 32, "one_row"), (3, 5000, 700, 4, "uniform"), (3, 5000, 700, 33, "uniform"),
+    (2, 40000, 1024, 128, "uniform")])
+def test_gather_bwd_kernel_equals_the_cpu_sum(dev, b, m, n, c, kind):
+    """The gather backward (a run index built on the card, one warp a row)
+    adds in ascending order, as the CPU's scatter_add does: equal bit for
+    bit, and twice the same; the run index equal to its twin's."""
+    from deepclr_tpu_torch.ops import grouping
+
     gen = torch.Generator().manual_seed(15)
     idx = torch.randint(0, n, (b, m), generator=gen)
+    if kind == "one_row":
+        idx[0] = n // 3
     g = torch.randn(b, m, c, generator=gen)
     got = ops.gather_points_grad(g.to(dev), idx.to(dev), n)
     assert torch.equal(got, ops.gather_points_grad(g.to(dev), idx.to(dev), n))
     assert torch.equal(got.cpu(), ops.gather_points_grad(g, idx, n))
+    perm, offsets = grouping.gather_bwd_index(idx.to(dev), n)
+    want = grouping.gather_bwd_index(idx, n)
+    assert torch.equal(perm.cpu(), want[0]) and torch.equal(offsets.cpu(), want[1])
 
 
 def test_fused_sa_backward_kernels_reject_uncompiled_widths(dev):
@@ -433,7 +449,7 @@ def test_model_on_card_matches_cpu(dev):
     y_card = ModelInferenceHelper(card, num_points=4096).predict_batch(clouds[:2], clouds[2:])
     counts = ops.launch_counts()
     assert counts == {"fps": 1, "min_d2": 1, "fused_sa": 1, "fused_sa_argmax": 0, "fused_sa_bwd": 0,
-                      "fused_sa_bwd_finish": 0, "gather_bwd": 0}
+                      "fused_sa_bwd_finish": 0, "gather_bwd_index": 0, "gather_bwd": 0}
     y_cpu = ModelInferenceHelper(cpu, num_points=4096).predict_batch(clouds[:2], clouds[2:])
     np.testing.assert_allclose(y_card, y_cpu, atol=2e-2, rtol=0)
 
@@ -704,7 +720,7 @@ def test_exact_model_on_card_matches_cpu(dev):
     ops.reset_launch_counts()
     y_card = ModelInferenceHelper(card, num_points=4096).predict_batch(clouds[:2], clouds[2:])
     assert ops.launch_counts() == {"fps": 1, "min_d2": 0, "fused_sa": 0, "fused_sa_argmax": 0, "fused_sa_bwd": 0,
-                                   "fused_sa_bwd_finish": 0, "gather_bwd": 0}
+                                   "fused_sa_bwd_finish": 0, "gather_bwd_index": 0, "gather_bwd": 0}
     y_cpu = ModelInferenceHelper(cpu, num_points=4096).predict_batch(clouds[:2], clouds[2:])
     np.testing.assert_allclose(y_card, y_cpu, atol=2e-2, rtol=0)
 
