@@ -19,6 +19,7 @@ and the process workers' reseeding from +3.
 """
 from __future__ import annotations
 
+import itertools
 import multiprocessing
 import os
 import queue
@@ -30,6 +31,7 @@ from typing import Any, Callable, Dict, Iterator, List, Optional, Union
 import numpy as np
 
 from ..geometry import LabelType
+from ..utils.profiling import span
 from .batching import BatchBuilder
 from .datasets import build_dataset
 from .transforms import build_transform
@@ -117,7 +119,9 @@ class _Prefetcher:
     """Producer thread + bounded queue; the producer's exception is raised
     in the consumer.  A consumer that stops early (the trainer at its last
     iteration) stops the producer, which closes its iterator, and with it
-    any worker pool."""
+    any worker pool.  The consumer's wait for each batch is a
+    ``loader.wait`` span (``utils.profiling.span``; its id the batch's
+    index in the epoch), one a batch handed out."""
 
     def __init__(self, make_iter: Callable[[], Iterator], buffer_size: int):
         self._make_iter = make_iter
@@ -155,8 +159,11 @@ class _Prefetcher:
         t = threading.Thread(target=worker, daemon=True)
         t.start()
         try:
-            while True:
-                item = q.get()
+            for i in itertools.count():
+                with span("loader.wait", i) as wait:
+                    item = q.get()
+                    if item is stop and wait is not None:
+                        wait.discard()   # the end of the epoch, not a batch
                 if item is stop:
                     break
                 yield item

@@ -48,6 +48,7 @@ from ..parallel import (allgather_host, allgather_host_f64, allgather_host_strin
                         set_process_group, wrap_data_parallel)
 from ..solver import make_optimizer, make_schedule
 from ..utils.logging import create_logger, create_summary_writer
+from ..utils.profiling import span, span_stats
 from .checkpoint import Checkpointer, load_checkpoint
 
 __all__ = ["BATCH_KEYS", "TrainState", "create_train_state", "make_eval_step", "make_train_step", "run_trainer",
@@ -178,6 +179,14 @@ def make_train_step(model: nn.Module, optimizer, loss_fn: Callable, metric_fns: 
     their gradients local (``no_sync``) and the k-th averages the
     accumulated gradients over the processes; the metric values of every
     micro-step are averaged over the processes before the EMAs.
+
+    Each micro-step is a ``train.step`` span (``utils.profiling.span``; its
+    id ``state.step`` before the step) with the children ``train.upload``
+    (the batch to the device: a pageable copy blocks here), ``train.forward``
+    (the model and the loss), ``train.backward``, ``train.update`` (every
+    k-th micro-step: the optimizer's step, ``zero_grad`` and the Polyak
+    average) and ``train.metrics`` (the metric functions, the all-reduce and
+    the EMAs).
     """
     k = int(accumulation_steps)
     ddp = model if isinstance(model, DistributedDataParallel) else None
@@ -188,40 +197,45 @@ def make_train_step(model: nn.Module, optimizer, loss_fn: Callable, metric_fns: 
     def train_step(state: TrainState, batch: Dict[str, Any], lr: float) -> Dict[str, torch.Tensor]:
         if state.param_ema is not None and not weight_ema_decay > 0.0:
             raise ValueError("state carries param_ema but weight_ema_decay is 0")
-        for group in optimizer.param_groups:
-            group["lr"] = float(lr)
-        b = _to_device(batch, device)
-        net.train()
-        for head in heads:
-            head.seed_dropout(state.step)
-        local = ddp is not None and (state.step + 1) % k != 0
-        with ddp.no_sync() if local else nullcontext():
-            y_pred, model_loss = model(b["template"], b["source"], b.get("template_mask"),
-                                       b.get("source_mask"), b.get("aug_template"), b.get("aug_source"),
-                                       y=b["y"])
-            loss = model_loss if use_model_loss else loss_fn(y_pred, b["y"])
-            (loss / k).backward()
-        state.step += 1
-        if state.step % k == 0:
-            optimizer.step()
-            optimizer.zero_grad(set_to_none=True)
-            if state.param_ema is not None:
-                with torch.no_grad():
-                    for n, p in net.named_parameters():
-                        e = state.param_ema[n]
-                        e.copy_(e * weight_ema_decay + (1.0 - weight_ema_decay) * p)
-        with torch.no_grad():
-            values = {"loss": loss.detach() / k, "loss_fn": loss.detach()}
-            y_pred = y_pred.detach()
-            for name, fn in metric_fns.items():
-                values[name] = fn(y_pred, b["y"])
-            if initialized():  # one all-reduce: the global batch's values
-                values = dict(zip(values, mean_over_processes(
-                    torch.stack([v.float().reshape(()) for v in values.values()])).unbind()))
-            for name, v in values.items():
-                old = state.metrics_ema.get(name)
-                state.metrics_ema[name] = v if old is None or state.step == 1 else \
-                    old * ema_alpha + (1 - ema_alpha) * v
+        with span("train.step", state.step):
+            for group in optimizer.param_groups:
+                group["lr"] = float(lr)
+            with span("train.upload"):
+                b = _to_device(batch, device)
+            net.train()
+            for head in heads:
+                head.seed_dropout(state.step)
+            local = ddp is not None and (state.step + 1) % k != 0
+            with ddp.no_sync() if local else nullcontext():
+                with span("train.forward"):
+                    y_pred, model_loss = model(b["template"], b["source"], b.get("template_mask"),
+                                               b.get("source_mask"), b.get("aug_template"), b.get("aug_source"),
+                                               y=b["y"])
+                    loss = model_loss if use_model_loss else loss_fn(y_pred, b["y"])
+                with span("train.backward"):
+                    (loss / k).backward()
+            state.step += 1
+            if state.step % k == 0:
+                with span("train.update"):
+                    optimizer.step()
+                    optimizer.zero_grad(set_to_none=True)
+                    if state.param_ema is not None:
+                        with torch.no_grad():
+                            for n, p in net.named_parameters():
+                                e = state.param_ema[n]
+                                e.copy_(e * weight_ema_decay + (1.0 - weight_ema_decay) * p)
+            with span("train.metrics"), torch.no_grad():
+                values = {"loss": loss.detach() / k, "loss_fn": loss.detach()}
+                y_pred = y_pred.detach()
+                for name, fn in metric_fns.items():
+                    values[name] = fn(y_pred, b["y"])
+                if initialized():  # one all-reduce: the global batch's values
+                    values = dict(zip(values, mean_over_processes(
+                        torch.stack([v.float().reshape(()) for v in values.values()])).unbind()))
+                for name, v in values.items():
+                    old = state.metrics_ema.get(name)
+                    state.metrics_ema[name] = v if old is None or state.step == 1 else \
+                        old * ema_alpha + (1 - ema_alpha) * v
         return state.metrics_ema
 
     return train_step
@@ -310,6 +324,12 @@ def _average_gradients(model: nn.Module) -> None:
         flat = mean_over_processes(torch.cat([g.reshape(-1) for g in grads]))
         for g, v in zip(grads, flat.split([g.numel() for g in grads])):
             g.copy_(v.view_as(g))
+
+
+def _loader_wait():
+    """(count, seconds) of the ``loader.wait`` spans so far (none while spans are off)."""
+    stats = span_stats().get("loader.wait")
+    return (0, 0.0) if stats is None else (stats["count"], stats["seconds"])
 
 
 def _have_matplotlib() -> bool:
@@ -503,6 +523,7 @@ def run_trainer(cfg: Dict[str, Any], model: nn.Module, train_loader, val_loader,
         done = False
         for epoch in range(start_epoch, epochs):
             t_epoch = time.monotonic()
+            waited = _loader_wait()
             n_batches = 0
             metrics = None
             for batch in train_loader:
@@ -539,8 +560,10 @@ def run_trainer(cfg: Dict[str, Any], model: nn.Module, train_loader, val_loader,
                         break
             if n_batches and metrics is not None:
                 tpb = (time.monotonic() - t_epoch) / n_batches
+                waits, wait_s = (a - b for a, b in zip(_loader_wait(), waited))
+                wait = f" Loader wait: {wait_s * 1e3 / waits:.3f}[ms/batch]" if waits else ""
                 logger.info(f"Epoch {epoch + 1} done. Avg Loss: {float(metrics['loss']):.6f} "
-                            f"Time per batch: {tpb:.3f}[s] Speed: {batch_size / tpb:.1f}[samples/s]")
+                            f"Time per batch: {tpb:.3f}[s] Speed: {batch_size / tpb:.1f}[samples/s]{wait}")
             if done:
                 break
 

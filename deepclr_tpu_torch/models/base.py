@@ -6,6 +6,12 @@ Clouds are padded or randomly subsampled to a fixed ``num_points`` buffer
 with a validity mask, using the same numpy RNG streams as the JAX helpers,
 and Morton-sorted on the host when the model is built ``presorted``.
 
+Each call is a ``helper.predict`` span (``utils.profiling.span``; its id
+the helper's call count) with the children ``helper.pad`` (fit and pad or
+subsample the clouds), ``helper.upload`` (stack and copy to the device),
+``helper.model`` (dispatch of the model's call) and ``helper.fetch`` (the
+pose back on the host: the wait for the device).
+
 ``upload_dtype="uint16"`` quantises each padded cloud per axis on the host
 (``_quantize_u16``) and uploads the 16-bit codes, half the float32 bytes;
 the card dequantises (``q * scale + offset``).  The codes travel as int16
@@ -20,6 +26,7 @@ import numpy as np
 import torch
 
 from ..ops.morton import morton_argsort_np
+from ..utils.profiling import span
 from .deepclr import DeepCLR
 
 __all__ = ["BatchedSequentialHelper", "ModelInferenceHelper", "UPLOAD_DTYPES", "pad_cloud"]
@@ -114,6 +121,7 @@ class ModelInferenceHelper:
         self._state: Optional[torch.Tensor] = None
         self._rng = np.random.default_rng(seed)
         self._morton = model.cloud_features.presorted
+        self._calls = 0   # the id of each call's spans
 
     def has_state(self) -> bool:
         return self._state is not None
@@ -123,15 +131,19 @@ class ModelInferenceHelper:
         self._state = None
 
     def _stack(self, clouds, name: str):
-        padded = [pad_cloud(_fit_dim(c, self._input_dim, name), self._num_points, self._rng,
-                            morton=self._morton) for c in clouds]
-        return device_batch(host_batch(padded, self._upload_dtype), self._device)
+        with span("helper.pad"):
+            # pad_cloud through the module global: a wrapper set there sees every call
+            padded = [pad_cloud(_fit_dim(c, self._input_dim, name), self._num_points, self._rng,
+                                morton=self._morton) for c in clouds]
+        with span("helper.upload"):
+            return device_batch(host_batch(padded, self._upload_dtype), self._device)
 
     @torch.inference_mode()
     def encode_cloud(self, cloud: np.ndarray) -> torch.Tensor:
         """Encode one raw cloud (N, D) -> (1, P, 3+C) features on the device."""
         pts, mask = self._stack([cloud], "cloud")
-        return self._model.encode(pts, mask)
+        with span("helper.model"):
+            return self._model.encode(pts, mask)
 
     @torch.inference_mode()
     def predict_batch(self, sources, templates) -> np.ndarray:
@@ -144,9 +156,14 @@ class ModelInferenceHelper:
                                "for batched sequential prediction.")
         if len(sources) != len(templates):
             raise RuntimeError("sources and templates must have equal length.")
-        t_pts, t_mask = self._stack(templates, "template")
-        s_pts, s_mask = self._stack(sources, "source")
-        return self._model(t_pts, s_pts, t_mask, s_mask)[0].cpu().numpy()
+        self._calls += 1
+        with span("helper.predict", self._calls):
+            t_pts, t_mask = self._stack(templates, "template")
+            s_pts, s_mask = self._stack(sources, "source")
+            with span("helper.model"):
+                y = self._model(t_pts, s_pts, t_mask, s_mask)[0]
+            with span("helper.fetch"):
+                return y.cpu().numpy()
 
     @torch.inference_mode()
     def predict(self, source: np.ndarray,
@@ -159,17 +176,24 @@ class ModelInferenceHelper:
         if self._is_sequential:
             if template is not None:
                 raise RuntimeError("Only the source cloud is required for sequential prediction.")
-            if self._state is None:
+        elif template is None:
+            raise RuntimeError("Source and template clouds are required for non-sequential prediction.")
+        self._calls += 1
+        with span("helper.predict", self._calls):
+            if not self._is_sequential:
+                f0 = self.encode_cloud(template)
+                f1 = self.encode_cloud(source)
+                with span("helper.model"):
+                    y = self._model.register(f0, f1)
+            elif self._state is None:
                 self._state = self.encode_cloud(source)
                 return None
-            pts, mask = self._stack([source], "source")
-            y, self._state = self._model.encode_register(self._state, pts, mask)
-            return y[0].cpu().numpy()
-        if template is None:
-            raise RuntimeError("Source and template clouds are required for non-sequential prediction.")
-        f0 = self.encode_cloud(template)
-        f1 = self.encode_cloud(source)
-        return self._model.register(f0, f1)[0].cpu().numpy()
+            else:
+                pts, mask = self._stack([source], "source")
+                with span("helper.model"):
+                    y, self._state = self._model.encode_register(self._state, pts, mask)
+            with span("helper.fetch"):
+                return y[0].cpu().numpy()
 
 
 class BatchedSequentialHelper:
@@ -196,6 +220,7 @@ class BatchedSequentialHelper:
         self._fresh = np.ones(batch, bool)  # lanes without a template yet
         self._rngs = [np.random.default_rng(seed + i) for i in range(batch)]
         self._morton = model.cloud_features.presorted
+        self._calls = 0   # the id of each step's spans
 
     def reset_stream(self, i: int) -> None:
         """Start a new sequence on lane ``i`` (its next step only seeds state)."""
@@ -211,8 +236,9 @@ class BatchedSequentialHelper:
         """Pad or subsample one frame a lane, lane i from its own RNG."""
         if len(clouds) != self._batch:
             raise RuntimeError(f"Expected {self._batch} clouds, got {len(clouds)}.")
-        return [pad_cloud(_fit_dim(c, self._input_dim, f"stream {i}"), self._num_points, self._rngs[i],
-                          morton=self._morton) for i, c in enumerate(clouds)]
+        with span("helper.pad"):
+            return [pad_cloud(_fit_dim(c, self._input_dim, f"stream {i}"), self._num_points, self._rngs[i],
+                              morton=self._morton) for i, c in enumerate(clouds)]
 
     @torch.inference_mode()
     def step(self, clouds) -> list:
@@ -224,14 +250,21 @@ class BatchedSequentialHelper:
         finished stream can keep receiving its last frame; ignore its
         outputs.
         """
-        pts, mask = device_batch(host_batch(self.pad(clouds), self._upload_dtype), self._device)
-        if self._state is None:
-            # seeding step: encode only (no template to register against)
-            self._state = self._model.encode(pts, mask)
-            self._fresh[:] = False
-            return [None] * self._batch
-        y, feats = self._model.encode_register(self._state, pts, mask)
-        y = y.cpu().numpy()
+        self._calls += 1
+        with span("helper.predict", self._calls):
+            padded = self.pad(clouds)
+            with span("helper.upload"):
+                pts, mask = device_batch(host_batch(padded, self._upload_dtype), self._device)
+            if self._state is None:
+                # seeding step: encode only (no template to register against)
+                with span("helper.model"):
+                    self._state = self._model.encode(pts, mask)
+                self._fresh[:] = False
+                return [None] * self._batch
+            with span("helper.model"):
+                y, feats = self._model.encode_register(self._state, pts, mask)
+            with span("helper.fetch"):
+                y = y.cpu().numpy()
         out = [None if self._fresh[i] else y[i] for i in range(self._batch)]
         self._state = feats
         self._fresh[:] = False

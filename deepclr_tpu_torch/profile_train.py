@@ -13,21 +13,22 @@ times:
 2. traced with ``torch.profiler``, again with one synchronise at the end:
    the device time per micro-step summed over kernels and copies, and the
    kernels with the most device time;
-3. untraced, with a synchronise at each phase boundary (hooks on the model's
-   forward and the optimizer's step): host time of the forward, of the loss,
-   backward and metrics, and of the update.  The synchronises drain the
-   queue, so this split adds up to more than run 1.
+3. untraced, with the step's spans on (``utils.profiling``) and, as in
+   run 1, one synchronise at the end: host ms a micro-step of each child of
+   ``train.step`` (``train.upload``, ``forward``, ``backward``, ``update``,
+   ``metrics``).  Nothing synchronises between them, so each is its host
+   time: dispatch, or a wait where the host blocks on the device (a
+   pageable upload behind the previous micro-step's kernels).
 
 Prints one JSON line per quantity: the card and its power limit, the host
-times of runs 1 and 2, the device time, the device idle share against each,
-the split, and the kernel rows.  Requires a CUDA card.
+times of runs 1, 2 and 3, the device time, the device idle share against
+each, the split, and the kernel rows.  Requires a CUDA card.
 """
 from __future__ import annotations
 
 import json
 import subprocess
 import time
-from collections import defaultdict
 
 import torch
 from torch.profiler import ProfilerActivity, profile
@@ -39,36 +40,23 @@ from .losses import make_loss_fn, make_metric_fns
 from .models import build_model
 from .profile_forward import _is_kernel
 from .synthetic import train_batch
+from .utils.profiling import enable_spans, reset_spans, span_stats
 
 PAIRS, POINTS = 5, 16384    # the flagship training batch
 ITERS, TOP = 4, 25          # micro-steps per run (2 updates), kernel rows printed
 LR = 1e-6
 
 
-def _phase_split(model, opt, step, state, batch):
-    """Host ms per micro-step of each phase, synchronised at its boundaries."""
-    split = defaultdict(float)
-    current = {"phase": None, "t": 0.0}
-
-    def mark(phase):
-        torch.cuda.synchronize()
-        now = time.perf_counter()
-        if current["phase"] is not None:
-            split[current["phase"]] += (now - current["t"]) * 1e3 / ITERS
-        current.update(phase=phase, t=now)
-
-    hooks = [model.register_forward_pre_hook(lambda *_: mark("forward")),
-             model.register_forward_hook(lambda *_: mark("loss_backward_metrics")),
-             opt.register_step_pre_hook(lambda *_: mark("update")),
-             opt.register_step_post_hook(lambda *_: mark("loss_backward_metrics"))]
+def _span_split(run):
+    """``run()``'s host ms a micro-step with the spans on, and the host ms
+    a micro-step of each span it recorded."""
+    reset_spans()
+    previous = enable_spans(True)
     try:
-        for _ in range(ITERS):
-            step(state, batch, LR)
-            mark(None)
+        ms = run()
     finally:
-        for h in hooks:
-            h.remove()
-    return dict(split)
+        enable_spans(previous)
+    return ms, {name: s["seconds"] * 1e3 / ITERS for name, s in span_stats().items()}
 
 
 def main() -> None:
@@ -97,7 +85,7 @@ def main() -> None:
     host_ms = run()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         traced_ms = run()
-    split = _phase_split(model, opt, step, state, batch)
+    spans_ms, split = _span_split(run)
 
     rows = [e for e in prof.key_averages() if _is_kernel(e)]
     device_ms = sum(e.self_device_time_total for e in rows) / 1e3 / ITERS
@@ -109,8 +97,8 @@ def main() -> None:
                       "device_idle_share": max(0.0, 1.0 - device_ms / host_ms),
                       "device_idle_share_traced": max(0.0, 1.0 - device_ms / traced_ms),
                       "kernel_launches_per_micro_step": sum(e.count for e in rows) / ITERS}))
-    print(json.dumps({"host_ms_per_micro_step_by_phase_synchronised": split,
-                      "update_ms_per_update_synchronised": split.get("update", 0.0) * k}))
+    print(json.dumps({"host_ms_per_micro_step_spans_on": spans_ms, "span_ms_per_micro_step": split,
+                      "update_ms_per_update": split.get("train.update", 0.0) * k}))
     for e in rows[:TOP]:
         print(json.dumps({"kernel": e.key[:90], "device_ms_per_micro_step": e.self_device_time_total / 1e3 / ITERS,
                           "calls_per_micro_step": e.count / ITERS}))

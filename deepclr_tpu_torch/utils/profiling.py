@@ -3,19 +3,135 @@
 * ``sync``: wait for the CUDA devices of some tensors;
 * ``device_timer``: host-clock time of a block that ends in ``sync``;
 * ``trace``: a ``torch.profiler`` trace of a block, written as a Chrome
-  trace file (``chrome://tracing``, Perfetto).
+  trace file (``chrome://tracing``, Perfetto), with the spans on;
+* ``span``: the port's own spans at its layer boundaries (the inference
+  helper, the train step, the loader), off until ``enable_spans(True)``.
+
+Spans.  Off (the default), ``span`` checks one flag and returns a shared
+no-op context: no clock read, no ``record_function``, no allocation.  On,
+a span reads ``time.perf_counter_ns`` on entry and exit and, while a
+``torch.profiler`` records, enters ``record_function(name)``: it then lies
+on the device trace's clock.  Each thread keeps its own stack of open
+spans: a span's parent is the innermost open span of its own thread, and a
+span given no ``id`` takes its parent's (the spans of one frame or
+micro-step share one).  On exit a span adds to its name's ``count``,
+``seconds`` and ``self_seconds`` (its duration less the part its child spans
+cover; ``span_stats``) and appends ``(name, id, parent name, start_ns,
+end_ns)`` to a buffer of the last ``SPAN_BUFFER`` spans (``spans``).  No
+span synchronises a device: a span around asynchronous device work times
+its dispatch, and the span that waits for its result holds the wait.
 """
 from __future__ import annotations
 
 import contextlib
 import os
 import os.path as osp
+import threading
 import time
-from typing import Any, Iterator, Optional
+from collections import deque
+from typing import Any, Dict, Hashable, Iterator, List, Optional, Tuple
 
 import torch
+from torch.profiler import record_function
 
-__all__ = ["device_timer", "sync", "trace"]
+__all__ = ["SPAN_BUFFER", "device_timer", "enable_spans", "reset_spans", "span", "span_stats", "spans", "sync",
+           "trace"]
+
+SPAN_BUFFER = 200_000   # spans kept by ``spans()``; the oldest are dropped
+
+_spans_on = False
+_OFF = contextlib.nullcontext()
+_now = time.perf_counter_ns
+_profiler_enabled = torch.autograd._profiler_enabled
+_local = threading.local()                  # .stack: this thread's open spans
+_lock = threading.Lock()                    # guards _totals
+_totals: Dict[str, List[int]] = {}          # name -> [count, ns, self ns]
+_records: deque = deque(maxlen=SPAN_BUFFER)
+
+
+class _Span:
+    __slots__ = ("name", "id", "parent", "start", "child_ns", "scope", "kept")
+
+    def __init__(self, name: str, id: Optional[Hashable]):
+        self.name, self.id = name, id
+
+    def __enter__(self) -> "_Span":
+        stack = getattr(_local, "stack", None)
+        if stack is None:
+            stack = _local.stack = []
+        self.parent = stack[-1] if stack else None
+        if self.id is None and self.parent is not None:
+            self.id = self.parent.id
+        self.child_ns, self.kept = 0, True
+        stack.append(self)
+        self.scope = record_function(self.name) if _profiler_enabled() else None
+        if self.scope is not None:
+            self.scope.__enter__()
+        self.start = _now()
+        return self
+
+    def discard(self) -> None:
+        """Record nothing of this span when it exits (its ``record_function``
+        scope stays in a trace)."""
+        self.kept = False
+
+    def __exit__(self, *exc) -> None:
+        end = _now()
+        if self.scope is not None:
+            self.scope.__exit__(*exc)
+        _local.stack.pop()
+        if not self.kept:
+            return
+        ns = end - self.start
+        parent = self.parent
+        if parent is not None:
+            parent.child_ns += ns
+        with _lock:
+            total = _totals.get(self.name)
+            if total is None:
+                total = _totals[self.name] = [0, 0, 0]
+            total[0] += 1
+            total[1] += ns
+            total[2] += ns - self.child_ns
+        _records.append((self.name, self.id, None if parent is None else parent.name, self.start, end))
+
+
+def span(name: str, id: Optional[Hashable] = None):
+    """A context manager timing its block as the span ``name`` while spans
+    are on (``enable_spans``); a shared no-op context while they are off.
+    On, ``with span(...) as s`` binds the span, whose ``discard()`` leaves
+    it unrecorded; off, it binds None."""
+    if not _spans_on:
+        return _OFF
+    return _Span(name, id)
+
+
+def enable_spans(on: bool) -> bool:
+    """Turn spans on or off for every thread; returns the previous state."""
+    global _spans_on
+    previous, _spans_on = _spans_on, bool(on)
+    return previous
+
+
+def reset_spans() -> None:
+    """Forget every recorded span: the sums and the buffer."""
+    with _lock:
+        _totals.clear()
+        _records.clear()
+
+
+def span_stats() -> Dict[str, Dict[str, float]]:
+    """``{name: {"count", "seconds", "self_seconds"}}`` of the spans that
+    have exited since the last ``reset_spans``."""
+    with _lock:
+        return {name: {"count": c, "seconds": ns / 1e9, "self_seconds": self_ns / 1e9}
+                for name, (c, ns, self_ns) in _totals.items()}
+
+
+def spans() -> List[Tuple[str, Optional[Hashable], Optional[str], int, int]]:
+    """The last ``SPAN_BUFFER`` spans, in the order they exited:
+    ``(name, id, parent name, start_ns, end_ns)`` on ``time.perf_counter_ns``."""
+    return list(_records)
 
 
 def _tensors(x: Any) -> Iterator[torch.Tensor]:
@@ -59,12 +175,18 @@ def device_timer(label: str = "", result_holder: Optional[dict] = None) -> Itera
 @contextlib.contextmanager
 def trace(logdir: str) -> Iterator[torch.profiler.profile]:
     """Profile a block with ``torch.profiler`` (the CPU, and CUDA when a
-    card is present) and write ``logdir/trace.json``.  Yields the profiler,
-    whose ``key_averages()`` hold the sums by operator and kernel."""
+    card is present) and write ``logdir/trace.json``.  Spans are on inside
+    the block, so the trace names them; their previous state returns after
+    it.  Yields the profiler, whose ``key_averages()`` hold the sums by
+    operator and kernel."""
     activities = [torch.profiler.ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(torch.profiler.ProfilerActivity.CUDA)
-    with torch.profiler.profile(activities=activities) as prof:
-        yield prof
+    previous = enable_spans(True)
+    try:
+        with torch.profiler.profile(activities=activities) as prof:
+            yield prof
+    finally:
+        enable_spans(previous)
     os.makedirs(logdir, exist_ok=True)
     prof.export_chrome_trace(osp.join(logdir, "trace.json"))
