@@ -12,6 +12,12 @@ subsample the clouds), ``helper.upload`` (stack and copy to the device),
 ``helper.model`` (dispatch of the model's call) and ``helper.fetch`` (the
 pose back on the host: the wait for the device).
 
+On a CUDA device a sequential helper replays its step as one CUDA graph
+(``_SequentialGraph``): the host then launches one graph a frame instead
+of every kernel and torch op of ``encode_register``.  ``graph_counts``
+says how often it did; a capture is a ``helper.capture`` span inside
+``helper.model``.
+
 ``upload_dtype="uint16"`` quantises each padded cloud per axis on the host
 (``_quantize_u16``) and uploads the 16-bit codes, half the float32 bytes;
 the card dequantises (``q * scale + offset``).  The codes travel as int16
@@ -20,7 +26,7 @@ with ``& 0xFFFF`` on the device.
 """
 from __future__ import annotations
 
-from typing import List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -89,7 +95,11 @@ def host_batch(padded: Sequence[Tuple[np.ndarray, np.ndarray]], upload_dtype: st
 def device_batch(host: Tuple[np.ndarray, ...], device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
     """Upload ``host_batch``'s arrays -> (points (B, P, D) float32, mask
     (B, P) bool) on ``device``; uint16 codes are dequantised there."""
-    tensors = [torch.from_numpy(a).to(device) for a in host]
+    return _dequantise([torch.from_numpy(a).to(device) for a in host])
+
+
+def _dequantise(tensors: Sequence[torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``host_batch``'s arrays on the device -> (points float32, mask)."""
     if len(tensors) == 2:
         return tensors[0], tensors[1]
     bits, offset, scale, mask = tensors
@@ -106,9 +116,81 @@ def _fit_dim(cloud, input_dim: int, name: str) -> np.ndarray:
     return cloud
 
 
+class _SequentialGraph:
+    """A sequential step on the card as one CUDA graph, on static buffers:
+    the inputs (``host_batch``'s arrays, copied in from pageable host
+    memory each frame, the bytes of an eager upload), the previous frame's
+    features (``state``) and the pose.  The graph holds the uint16
+    dequantisation, ``encode_register(state, points, mask)`` and the copy
+    of the new features into ``state``, which stream order puts after the
+    register has read the old ones.
+
+    The first ``run`` is the eager warm-up that capture needs, on a side
+    stream; the second captures the step and replays it; every later one
+    replays.  A replay issues the launches of an eager step, in its order
+    and on its inputs, but goes through no ``CudaKernel.launch``: replays
+    add no launch counts.  The graph reads the model's parameters where
+    they lie, so a ``load_state_dict`` (which copies in place) changes
+    the weights it runs."""
+
+    def __init__(self, host: Sequence[np.ndarray], state: torch.Tensor):
+        self.inputs = [torch.empty(a.shape, dtype=torch.from_numpy(a).dtype, device=state.device)
+                       for a in host]
+        self.state = torch.empty_like(state)
+        self.graph: Optional[torch.cuda.CUDAGraph] = None
+        self.pose: Optional[torch.Tensor] = None
+        self.warm = False
+
+    def load(self, host: Sequence[np.ndarray], state: torch.Tensor) -> None:
+        """Copy a frame's host arrays in, and the features to register
+        against when they are not already the state buffer's (the first
+        frame, a frame after ``reset_state``)."""
+        for buf, a in zip(self.inputs, host):
+            buf.copy_(torch.from_numpy(a))
+        if state is not self.state:
+            self.state.copy_(state)
+
+    def _step(self, model: DeepCLR) -> torch.Tensor:
+        y, feats = model.encode_register(self.state, *_dequantise(self.inputs))
+        self.state.copy_(feats)
+        return y
+
+    def run(self, model: DeepCLR, counts: Dict[str, int]) -> torch.Tensor:
+        """The step on the loaded inputs -> the pose (1, label_dim) on the
+        device; ``counts`` gains the eager run, capture or replay."""
+        with torch.cuda.device(self.state.device):
+            if not self.warm:
+                current = torch.cuda.current_stream()
+                side = torch.cuda.Stream()
+                side.wait_stream(current)
+                with torch.cuda.stream(side):
+                    y = self._step(model)
+                current.wait_stream(side)
+                self.warm = True
+                counts["eager"] += 1
+                return y
+            if self.graph is None:
+                with span("helper.capture"):
+                    self.graph = torch.cuda.CUDAGraph()
+                    with torch.cuda.graph(self.graph):
+                        self.pose = self._step(model)
+                counts["captures"] += 1
+            self.graph.replay()
+        counts["replays"] += 1
+        return self.pose
+
+
 class ModelInferenceHelper:
     """Stateful wrapper over ``DeepCLR.encode`` / ``register`` /
-    ``encode_register``; runs on the device of the model's parameters."""
+    ``encode_register``; runs on the device of the model's parameters.
+
+    Sequential on a CUDA device, the registering frames run as a CUDA
+    graph (``_SequentialGraph``), one a key of the host arrays' shapes and
+    dtypes (in practice one a helper): the first registering frame of a
+    key runs eagerly, the second captures, every later one replays.
+    Encode-only frames (the first, and the first after ``reset_state``)
+    run eagerly; the next registering frame copies their features into the
+    graph's state buffer.  On the CPU every frame runs eagerly."""
 
     def __init__(self, model: DeepCLR, is_sequential: bool = False, num_points: int = 16384,
                  seed: int = 0, upload_dtype: str = "float32"):
@@ -122,6 +204,8 @@ class ModelInferenceHelper:
         self._rng = np.random.default_rng(seed)
         self._morton = model.cloud_features.presorted
         self._calls = 0   # the id of each call's spans
+        self._graphs: Dict[tuple, _SequentialGraph] = {}
+        self._graph_counts = {"captures": 0, "replays": 0, "eager": 0}
 
     def has_state(self) -> bool:
         return self._state is not None
@@ -130,13 +214,46 @@ class ModelInferenceHelper:
         """Drop cached features, e.g. when a new sequence starts."""
         self._state = None
 
-    def _stack(self, clouds, name: str):
+    def graph_counts(self) -> Dict[str, int]:
+        """Sequential frames that registered, by how: ``replays`` of a CUDA
+        graph, ``eager`` runs (every one on the CPU; the warm-up before a
+        capture on the card), and the ``captures``; counted whether or
+        not spans are on.  Replays over registering frames is the share
+        the graph ran."""
+        return dict(self._graph_counts)
+
+    def _pad(self, clouds, name: str):
         with span("helper.pad"):
             # pad_cloud through the module global: a wrapper set there sees every call
-            padded = [pad_cloud(_fit_dim(c, self._input_dim, name), self._num_points, self._rng,
-                                morton=self._morton) for c in clouds]
+            return [pad_cloud(_fit_dim(c, self._input_dim, name), self._num_points, self._rng,
+                              morton=self._morton) for c in clouds]
+
+    def _stack(self, clouds, name: str):
+        padded = self._pad(clouds, name)
         with span("helper.upload"):
             return device_batch(host_batch(padded, self._upload_dtype), self._device)
+
+    def _register(self, source: np.ndarray) -> torch.Tensor:
+        """One registering sequential frame -> its pose (1, label_dim) on
+        the device; the new features become the state."""
+        if self._device.type != "cuda":
+            pts, mask = self._stack([source], "source")
+            with span("helper.model"):
+                y, self._state = self._model.encode_register(self._state, pts, mask)
+            self._graph_counts["eager"] += 1
+            return y
+        padded = self._pad([source], "source")
+        with span("helper.upload"):
+            host = host_batch(padded, self._upload_dtype)
+            key = tuple((a.shape, a.dtype) for a in host)
+            graph = self._graphs.get(key)
+            if graph is None:
+                graph = self._graphs[key] = _SequentialGraph(host, self._state)
+            graph.load(host, self._state)
+        with span("helper.model"):
+            y = graph.run(self._model, self._graph_counts)
+        self._state = graph.state
+        return y
 
     @torch.inference_mode()
     def encode_cloud(self, cloud: np.ndarray) -> torch.Tensor:
@@ -189,9 +306,7 @@ class ModelInferenceHelper:
                 self._state = self.encode_cloud(source)
                 return None
             else:
-                pts, mask = self._stack([source], "source")
-                with span("helper.model"):
-                    y, self._state = self._model.encode_register(self._state, pts, mask)
+                y = self._register(source)
             with span("helper.fetch"):
                 return y[0].cpu().numpy()
 

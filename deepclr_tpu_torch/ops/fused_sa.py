@@ -52,7 +52,7 @@ their gradients come back in float32, unrounded.
 from __future__ import annotations
 
 import ctypes
-from typing import List, NamedTuple, Optional
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -232,12 +232,31 @@ class SAOperands(NamedTuple):
     compute_dtype: torch.dtype
 
 
+_r2_cache: Dict[Tuple[Tuple[float, ...], torch.device], Tuple[torch.Tensor, float]] = {}
+
+
+def _squared_radii(radii, device: torch.device) -> Tuple[torch.Tensor, float]:
+    """(the per-column squared radii as a float32 tensor on ``device``,
+    their max as a host float), made once for each radius tuple and device
+    and then shared: a CUDA graph cannot capture the copy from pageable
+    host memory that a fresh tensor a call would need.  The tensor is made
+    outside inference mode, so training may use one that an inference call
+    made; nothing writes to it."""
+    key = (tuple(radii), device)
+    if key not in _r2_cache:
+        r2 = np.square(np.asarray(radii, np.float32))
+        with torch.inference_mode(False):
+            _r2_cache[key] = (torch.from_numpy(r2).to(device), float(r2.max()))
+    return _r2_cache[key]
+
+
 def prepare(xyz, centers, weights, biases, radius, features=None, mask=None,
             compute_dtype=torch.bfloat16) -> SAOperands:
     """Operands of the fused kernels: the packed points, the layer-1 split
     terms (differentiable torch ops), the float32 tail and the squared radii.
-    The radii go to the device without a stream sync, and their max stays on
-    the host, so preparing drains no launch queue."""
+    The squared radii are one tensor a radius tuple and device
+    (``_squared_radii``), and their max stays on the host, so preparing
+    drains no launch queue and copies nothing from the host."""
     w1 = weights[0].float()
     w1x = w1[:3]
     a = torch.matmul(xyz, w1x)
@@ -249,11 +268,11 @@ def prepare(xyz, centers, weights, biases, radius, features=None, mask=None,
     radii = radius if isinstance(radius, (tuple, list)) else (float(radius),) * h3
     if len(radii) != h3:
         raise ValueError(f"ball_mlp_max: {len(radii)} radii for {h3} output columns")
-    r2 = np.square(np.asarray(radii, np.float32))
+    r2, r2max = _squared_radii(radii, xyz.device)
     return SAOperands(
         _pack_points(xyz.detach(), mask), a.contiguous(), centers.detach().contiguous(), bc.contiguous(),
         [w.float().contiguous() for w in weights[1:]], [bb.float().contiguous() for bb in biases[1:]],
-        torch.from_numpy(r2).to(xyz.device, non_blocking=True), float(r2.max()), compute_dtype)
+        r2, r2max, compute_dtype)
 
 
 def _rounded_tail(op: SAOperands) -> List[torch.Tensor]:

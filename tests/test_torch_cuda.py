@@ -529,6 +529,74 @@ def test_float32_predictions_do_not_depend_on_the_batch(dev):
     assert lanes <= F32_BATCH_TOL and pairs <= F32_BATCH_TOL, (lanes, pairs)
 
 
+def _eager_sequential_poses(model, frames, rng, upload_dtype, resets=()):
+    """A sequential helper's poses computed eagerly from the same draws:
+    ``rng`` pads every frame, ``device_batch`` uploads it, ``encode`` on the
+    first frame and after a reset, ``encode_register`` on every other."""
+    from deepclr_tpu_torch.models.base import device_batch, host_batch, pad_cloud
+
+    state, poses = None, []
+    with torch.inference_mode():
+        for t, frame in enumerate(frames):
+            if t in resets:
+                state = None
+            padded = [pad_cloud(frame, 16384, rng, morton=model.cloud_features.presorted)]
+            pts, mask = device_batch(host_batch(padded, upload_dtype), torch.device("cuda"))
+            if state is None:
+                state = model.encode(pts, mask)
+                poses.append(None)
+            else:
+                y, state = model.encode_register(state, pts, mask)
+                poses.append(y[0].cpu().numpy())
+    return poses
+
+
+def _assert_poses_equal(got, ref):
+    assert len(got) == len(ref)
+    for t, (g, r) in enumerate(zip(got, ref)):
+        assert (g is None) == (r is None), t
+        if r is not None:
+            np.testing.assert_array_equal(g, r, err_msg=f"frame {t}")
+
+
+@pytest.mark.parametrize("upload_dtype", ["float32", "uint16"])
+def test_sequential_graph_replays_bit_equal_to_eager(dev, upload_dtype):
+    """The flagship (bf16) through a sequential helper on 14 subsampled
+    frames with a reset after the seventh: one capture, a replay for every
+    registering frame after the warm-up, poses bit-equal to the eager model
+    on the same draws; replays add no launch counts; new weights loaded in
+    place after the capture give the new weights' eager poses."""
+    from deepclr_tpu_torch.synthetic import kitti_like_sequence
+
+    model = build_model(KITTI_MODEL_CFG, device="cuda", seed=3)
+    frames = kitti_like_sequence(14, 20000, seed=30)[0]
+    helper = ModelInferenceHelper(model, is_sequential=True, num_points=16384, seed=4, upload_dtype=upload_dtype)
+    got = []
+    for t, frame in enumerate(frames):
+        if t == 7:
+            helper.reset_state()
+        got.append(helper.predict(frame))
+    rng = np.random.default_rng(4)
+    _assert_poses_equal(got, _eager_sequential_poses(model, frames, rng, upload_dtype, resets=(7,)))
+    assert helper.graph_counts() == {"captures": 1, "replays": 11, "eager": 1}
+
+    ops.reset_launch_counts()
+    helper.reset_state()
+    later = [helper.predict(frame) for frame in frames[:3]]
+    assert ops.launch_counts() == {"fps": 1, "min_d2": 1, "fused_sa": 1, "fused_sa_argmax": 0, "fused_sa_bwd": 0,
+                                   "fused_sa_bwd_finish": 0, "gather_bwd_index": 0, "gather_bwd": 0}
+    _assert_poses_equal(later, _eager_sequential_poses(model, frames[:3], rng, upload_dtype))
+    assert helper.graph_counts() == {"captures": 1, "replays": 13, "eager": 1}
+
+    with torch.no_grad():
+        model.load_state_dict(build_model(KITTI_MODEL_CFG, device="cuda", seed=5).state_dict())
+    helper.reset_state()
+    fresh = [helper.predict(frame) for frame in frames[3:7]]
+    _assert_poses_equal(fresh, _eager_sequential_poses(model, frames[3:7], rng, upload_dtype))
+    assert not np.array_equal(fresh[1], got[4])   # the same frame pair under the old weights
+    assert helper.graph_counts() == {"captures": 1, "replays": 16, "eager": 1}
+
+
 def _modelnet40_model_cfg():
     import os.path as osp
 

@@ -341,3 +341,34 @@ def test_bwd_plain_non_finite_entries_are_within_the_pallas_ones(where, value):
         scale = max(1e-3, float(np.abs(y[both]).max()))
         np.testing.assert_allclose(x[both], y[both], atol=1e-5 * scale, rtol=0, err_msg=name)
     assert int((~np.isfinite(got[0].numpy())).sum()) == {True: 16, False: 18}[bool(np.isnan(value))]
+
+
+def test_prepare_shares_one_tensor_of_squared_radii():
+    """Repeated calls with equal radii share one tensor of squared radii (a
+    CUDA graph cannot capture a fresh one's copy from the host); the
+    operands are those of a tensor made a call, and one made under
+    inference mode still serves training."""
+    xyz, feats, centers, mask, g = _case(3, False)
+    w, bias, radius = _bundle(4, radii=(0.45, 0.95))
+    with torch.inference_mode():
+        first = _port_operands(xyz, centers, w, bias, radius, feats, mask, torch.float32)
+    again = _port_operands(xyz, centers, w, bias, list(radius), feats, mask, torch.float32)
+    assert again.r2 is first.r2 and not first.r2.is_inference()
+    r2 = np.square(np.asarray(radius, np.float32))
+    assert torch.equal(first.r2, torch.from_numpy(r2)) and first.r2max == float(r2.max())
+    for name, x, y in zip(first._fields, first, again):
+        if isinstance(x, torch.Tensor):
+            assert torch.equal(x, y), name
+        elif isinstance(x, list):
+            assert all(torch.equal(a, b) for a, b in zip(x, y)), name
+        else:
+            assert x == y, name
+    other = _port_operands(xyz, centers, w, bias, tuple(r * 2 for r in radius), feats, mask, torch.float32)
+    assert other.r2 is not first.r2 and torch.equal(other.r2, torch.from_numpy(np.square(
+        np.asarray([r * 2 for r in radius], np.float32))))
+    # training on the shared tensor: the Function's gradients run
+    xyz_t = _t(xyz).requires_grad_()
+    out = ops.ball_mlp_max(xyz_t, _t(centers), [_t(x) for x in w], [_t(x) for x in bias], radius,
+                           features=_t(feats), mask=_t(mask), compute_dtype=torch.float32)
+    (out * _t(g)).sum().backward()
+    assert xyz_t.grad is not None and torch.isfinite(xyz_t.grad).all()

@@ -39,7 +39,8 @@ from deepclr_tpu.models import save_weights as jax_save_weights  # noqa: E402
 from deepclr_tpu.models.base import _quantize_u16 as jax_quantize_u16, pad_cloud as jax_pad_cloud  # noqa: E402
 from deepclr_tpu_torch.models import (BatchedSequentialHelper, ModelInferenceHelper, build_model,  # noqa: E402
                                       load_jax_params, save_weights)
-from deepclr_tpu_torch.models.base import _quantize_u16, device_batch, host_batch, pad_cloud  # noqa: E402
+from deepclr_tpu_torch.models.base import (UPLOAD_DTYPES, _quantize_u16, _SequentialGraph, device_batch,  # noqa: E402
+                                           host_batch, pad_cloud)
 
 REPO = osp.realpath(osp.join(osp.dirname(__file__), ".."))
 N = 256
@@ -214,6 +215,66 @@ def test_batched_sequential_equals_per_lane_helpers():
                 assert got[i] is None and ref is None
             else:
                 np.testing.assert_allclose(got[i], ref, atol=1e-5, rtol=0)
+
+
+def _eager_sequential_poses(model, clouds, seed, upload_dtype, resets=()):
+    """A sequential helper's poses computed eagerly from the same draws: one
+    ``default_rng(seed)`` pads every frame, ``device_batch`` uploads it,
+    ``encode`` on the first frame and after a reset, ``encode_register``
+    on every other."""
+    rng, state, poses = np.random.default_rng(seed), None, []
+    with torch.inference_mode():
+        for t, cloud in enumerate(clouds):
+            if t in resets:
+                state = None
+            pts, mask = device_batch(host_batch([pad_cloud(cloud, N, rng)], upload_dtype), torch.device("cpu"))
+            if state is None:
+                state = model.encode(pts, mask)
+                poses.append(None)
+            else:
+                y, state = model.encode_register(state, pts, mask)
+                poses.append(y[0].numpy())
+    return poses
+
+
+@pytest.mark.parametrize("upload_dtype", UPLOAD_DTYPES)
+def test_cpu_sequential_helper_runs_eagerly_and_captures_no_graph(upload_dtype):
+    model = build_model(_cfg("bfloat16"), device="cpu", seed=3)
+    helper = ModelInferenceHelper(model, is_sequential=True, num_points=N, seed=5, upload_dtype=upload_dtype)
+    clouds = _clouds() + _clouds(10)
+    got = []
+    for t, cloud in enumerate(clouds):
+        if t == 5:
+            helper.reset_state()
+        got.append(helper.predict(cloud))
+    for g, r in zip(got, _eager_sequential_poses(model, clouds, 5, upload_dtype, resets=(5,))):
+        assert (g is None) == (r is None)
+        if r is not None:
+            np.testing.assert_array_equal(g, r)
+    assert helper.graph_counts() == {"captures": 0, "replays": 0, "eager": 6}
+
+
+@pytest.mark.parametrize("upload_dtype", UPLOAD_DTYPES)
+def test_the_graphed_step_is_the_eager_step(upload_dtype):
+    """The body that a helper on the card captures (dequantise the static
+    inputs, ``encode_register`` against the state buffer, copy the new
+    features into it), run on CPU buffers, gives the eager poses and
+    features frame after frame."""
+    model = build_model(_cfg("bfloat16"), device="cpu", seed=4)
+    rng = np.random.default_rng(6)
+    hosts = [host_batch([pad_cloud(c, N, rng)], upload_dtype) for c in _clouds() + _clouds(10)]
+    cpu = torch.device("cpu")
+    with torch.inference_mode():
+        state = model.encode(*device_batch(hosts[0], cpu))
+        graph = _SequentialGraph(hosts[1], state)
+        assert [b.dtype for b in graph.inputs] == [torch.from_numpy(a).dtype for a in hosts[1]]
+        previous = state
+        for host in hosts[1:]:
+            graph.load(host, previous)
+            y = graph._step(model)
+            y_ref, state = model.encode_register(state, *device_batch(host, cpu))
+            assert torch.equal(y, y_ref) and torch.equal(graph.state, state)
+            previous = graph.state
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
