@@ -85,8 +85,9 @@ class Spec:
         return self.module("entries", name).ENTRY
 
     def clouds(self, name: str) -> ModuleType:
-        """``clouds/<name>.py``: its ``frames(traffic, rng)`` gives a sequence
-        of (pose (4, 4), cloud (N, D)) from a traffic file's parameters."""
+        """``clouds/<name>.py``: its ``runs(traffic, rng)`` gives a list of
+        runs, each a sequence of (pose (4, 4), cloud (N, D)), from a traffic
+        file's parameters."""
         return self.module("clouds", name)
 
 

@@ -67,7 +67,7 @@ def test_every_name_finds_its_file(bench):
     for w in bench["workloads"]:
         spec.config(w["config"])
         tr = spec.traffic(w["traffic"])
-        assert isinstance(spec.entry(tr["entry"]), type) and callable(spec.clouds(tr["clouds"]).frames)
+        assert isinstance(spec.entry(tr["entry"]), type) and callable(spec.clouds(tr["clouds"]).runs)
         assert set(spec.limits(w["name"]))
         pairs.add((w["config"], w["traffic"]))
         names = {m["name"] for m in spec.end_to_end(w["name"])}
@@ -130,11 +130,9 @@ def test_added_files_run_without_an_edit(cpu_root):
     (cpu_root / "configs" / "kitti_copy.json").write_text(json.dumps(cfg))
     # a cloud source of its own: the drive, each cloud's rows reversed
     (cpu_root / "clouds" / "drive_reversed.py").write_text(
-        "from port_bench.yardstick import synthetic\n\n\n"
-        "def frames(traffic, rng):\n"
-        "    return [(pose, cloud[::-1].copy()) for pose, cloud in synthetic.drive(\n"
-        "        rng, int(traffic['frames']), traffic['points'], n_beams=int(traffic['beams']),\n"
-        "        n_azimuths=int(traffic['azimuths']))]\n")
+        "from port_bench.clouds import drive\n\n\n"
+        "def runs(traffic, rng):\n"
+        "    return [[(pose, cloud[::-1].copy()) for pose, cloud in run] for run in drive.runs(traffic, rng)]\n")
     # an entry of its own: the training entry, marking the cloud source it was given
     (cpu_root / "entries" / "train_marked.py").write_text(
         "from port_bench.entries.train import TrainEntry\n\n\n"

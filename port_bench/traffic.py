@@ -1,21 +1,29 @@
 """The one traffic generator: a traffic file's parameters and the seed ->
 the inputs of a cell, on the host, as the program's callers hand them.
 
-``clouds`` names the source of clouds, ``clouds/<name>.py``, which gives a
-sequence of (pose, cloud) from the file's parameters.  ``entry`` names the
-way the cell drives the program (``entries/<name>.py``); a training entry
-asks for ``batches`` batch dicts of ``pairs_per_batch`` pairs (the loader's
-keys and dtypes), the others for the raw clouds.
+``clouds`` names the source of clouds, ``clouds/<name>.py``, whose
+``runs(traffic, rng)`` gives a list of runs, each a sequence of (pose,
+cloud), from the file's parameters; what stays fixed from run to run (a
+drive's worlds) is the source's own data and its own concern.  The run's
+seed draws everything a caller draws afresh each run: whatever the source
+draws from ``rng``, the augmentation and the point noise (``DATA_STREAM``),
+the helper's seed and the weights.  ``entry`` names the way the cell drives
+the program (``entries/<name>.py``); a training entry asks for ``batches``
+batch dicts of ``pairs_per_batch`` pairs (the loader's keys and dtypes),
+the others for the raw clouds, run after run.
 
-A training pair is frame i as the template and frame i + ``stride`` as the
-source, over consecutive i, starting again at the first frame once the
-frames run out (as an epoch does), each pair with draws of its own.  ``augment`` applies the recipe's transforms
-(``transforms`` of ``configs/training/kitti_00-10.yaml``, all normal): a
-random motion R of the source (``translation_noise`` m and
-``rotation_noise_deg`` a axis), deferred to the device as the source's
-augmentation inv(R) and folded into the label, then ``point_noise`` on the
-coordinates of both clouds.  Every size is fixed by the file; the seed
-changes only the scenes and the draws.
+A training pair is frame i of a run as the template and frame i +
+``stride`` of the same run as the source, so that no pair spans two runs.
+Pairs take the runs in turn (pair j from run j mod R) and go over each
+run's consecutive i, starting again at its first frame once its frames run
+out (as an epoch does), each pair with draws of its own, so a batch mixes
+the runs as a batch shuffled from several sequences does.  ``augment``
+applies the recipe's transforms (``transforms`` of
+``configs/training/kitti_00-10.yaml``, all normal): a random motion R of
+the source (``translation_noise`` m and ``rotation_noise_deg`` a axis),
+deferred to the device as the source's augmentation inv(R) and folded into
+the label, then ``point_noise`` on the coordinates of both clouds.  Every
+size is fixed by the file.
 """
 from __future__ import annotations
 
@@ -28,6 +36,7 @@ from .yardstick import synthetic
 DATA_STREAM = 0  # np.random.default_rng([seed, stream]) streams of a run
 HELPER_STREAM = 1
 SAMPLE_STREAM = 2
+WORLD_STREAM = 3  # clouds/drive.py's, with a world seed in place of the run's
 
 
 def rng_for(seed: int, stream: int) -> np.random.Generator:
@@ -49,15 +58,18 @@ def _augmentation(augment, rng) -> np.ndarray:
     return m
 
 
-def train_pairs(traffic, frames, rng, count: int):
-    """(template, source, source augmentation, label motion) of ``count`` pairs."""
+def train_pairs(traffic, runs, rng, count: int):
+    """(template, source, source augmentation, label motion) of ``count``
+    pairs from ``runs``, the source's runs of frames."""
     stride = int(traffic.get("stride", 1))
     augment = traffic.get("augment")
-    distinct = len(frames) - stride
-    if distinct < 1:
-        raise ValueError(f"traffic: {len(frames)} frames give no pair of stride {stride}")
+    distinct = [len(frames) - stride for frames in runs]
+    if min(distinct) < 1:
+        raise ValueError(f"traffic: {min(map(len, runs))} frames give no pair of stride {stride}")
     for j in range(count):
-        (pose0, cloud0), (pose1, cloud1) = frames[j % distinct], frames[j % distinct + stride]
+        k = j % len(runs)
+        i = (j // len(runs)) % distinct[k]
+        (pose0, cloud0), (pose1, cloud1) = runs[k][i], runs[k][i + stride]
         motion = np.linalg.inv(pose0) @ pose1    # template ~ motion @ source
         aug = np.eye(4)
         if augment:
@@ -69,9 +81,9 @@ def train_pairs(traffic, frames, rng, count: int):
         yield cloud0, cloud1, aug, motion
 
 
-def train_batches(traffic, frames, rng) -> List[Dict[str, np.ndarray]]:
+def train_batches(traffic, runs, rng) -> List[Dict[str, np.ndarray]]:
     per, count = int(traffic["pairs_per_batch"]), int(traffic["batches"])
-    pairs = list(train_pairs(traffic, frames, rng, per * count))
+    pairs = list(train_pairs(traffic, runs, rng, per * count))
     batches = []
     for i in range(count):
         rows = pairs[i * per:(i + 1) * per]
@@ -91,9 +103,9 @@ def train_batches(traffic, frames, rng) -> List[Dict[str, np.ndarray]]:
 
 def make(traffic, seed: int, clouds, batches: bool = False):
     """The cell's inputs from the cloud source module ``clouds``: a list of
-    training batch dicts (``batches``) or of raw clouds."""
+    training batch dicts (``batches``) or of raw clouds, run after run."""
     rng = rng_for(seed, DATA_STREAM)
-    frames = clouds.frames(traffic, rng)
+    runs = clouds.runs(traffic, rng)
     if batches:
-        return train_batches(traffic, frames, rng)
-    return [cloud for _, cloud in frames]
+        return train_batches(traffic, runs, rng)
+    return [cloud for frames in runs for _, cloud in frames]

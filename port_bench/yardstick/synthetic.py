@@ -5,9 +5,13 @@ A frozen copy of ``deepclr_tpu_torch/data/synthetic.py`` (``make_scene``,
 ``lidar_scan``, ``trajectory``, ``drive``) and of the two host helpers it needs from
 ``deepclr_tpu_torch/geometry/hostmath.py`` (``_euler_to_matrix_np``, the
 dual-quaternion branch of ``label_from_matrix_np``).  Kept here so that a
-change to the program cannot change the benchmark's inputs.  One addition:
+change to the program cannot change the benchmark's inputs.  Two changes:
 ``lidar_scan(num_points=None)`` keeps every hit, a raw scan of varying size
-(the copy draws nothing for it, the original always subsamples).
+(the copy draws nothing for it, the original always subsamples); and the
+original ``drive``, which draws its path, its boxes and its scans from one
+generator, is split in two: ``world`` (the path and the boxes, or a
+stretch of a longer drive's path among all its boxes) and ``drive`` (the
+scans of a world), each from a generator of its own.
 """
 from __future__ import annotations
 
@@ -151,12 +155,13 @@ def trajectory(rng: np.random.Generator, frames: int, speed: float = 1.2):
     return poses
 
 
-def drive(rng: np.random.Generator, frames: int, num_points: Optional[int], speed: float = 1.2,
-          **scan_kwargs) -> Iterator[Tuple[np.ndarray, np.ndarray]]:
-    """An odometry sequence: (pose (4, 4) float64, scan) for each of
-    ``frames`` sensor poses along ``trajectory``, all scans of one
-    persistent scene spread over the drive's envelope."""
-    poses = trajectory(rng, frames, speed=speed)
+def world(rng: np.random.Generator, frames: int, speed: float = 1.2, drive_frames: Optional[int] = None):
+    """A drive's world: ``frames`` consecutive sensor poses (4, 4) of a
+    ``drive_frames``-pose ``trajectory`` (no fewer than ``frames``) and one
+    persistent scene of boxes spread over the whole drive's envelope.  Of a
+    longer drive, the poses start at a frame drawn after the boxes."""
+    total = max(frames, drive_frames or 0)
+    poses = trajectory(rng, total, speed=speed)
     span = np.array([p[:3, 3] for p in poses])
     lo = span.min(0) - 50
     hi = span.max(0) + 50
@@ -165,6 +170,14 @@ def drive(rng: np.random.Generator, frames: int, num_points: Optional[int], spee
     shift = rng.uniform(lo[:2], hi[:2], (n_obs, 2)) - (obs_lo[:, :2] + obs_hi[:, :2]) / 2
     obs_lo[:, :2] += shift
     obs_hi[:, :2] += shift
-    scene = (obs_lo, obs_hi)
+    first = int(rng.integers(0, total - frames + 1)) if total > frames else 0
+    return poses[first:first + frames], (obs_lo, obs_hi)
+
+
+def drive(rng: np.random.Generator, world, num_points: Optional[int],
+          **scan_kwargs) -> Iterator[Tuple[np.ndarray, np.ndarray]]:
+    """An odometry sequence through ``world`` (poses, scene): (pose (4, 4)
+    float64, scan) at each pose, every scan's draws from ``rng``."""
+    poses, scene = world
     for pose in poses:
         yield pose, lidar_scan(rng, num_points, scene=scene, sensor_pose=pose, **scan_kwargs)
