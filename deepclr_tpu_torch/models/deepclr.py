@@ -21,6 +21,7 @@ from .. import ops
 from ..geometry import LabelType, se3
 from ..losses import rot_loss, trans_loss
 from ..ops.pairwise import _sqnorm
+from ..utils.profiling import count, span
 from .layers import MLP, Dense
 from .pointnet2 import SetAbstractionMSG
 
@@ -99,7 +100,11 @@ class MotionEmbedding(nn.Module):
     index gather; "auto" is "take" off a TPU) or "onehot" (the JAX
     package's TPU form: one-hot bf16 products with the rows split into
     hi + lo bf16 halves).  With batch norm the pair features are built
-    literally and go through the MLP (Dense -> BatchNorm -> ReLU)."""
+    literally and go through the MLP (Dense -> BatchNorm -> ReLU).
+
+    With a radius, each forward counts its neighbour pairs as
+    ``merge.pairs`` and those it zeroes as ``merge.cut``
+    (``utils.profiling.count``: while spans are on)."""
 
     def __init__(self, feat_dim: int, mlp: Sequence[int], k: int = 20, radius: float = 10.0,
                  point_dim: int = 3, append_features: bool = True, batch_norm: bool = False,
@@ -166,6 +171,7 @@ class MotionEmbedding(nn.Module):
         for i in range(1, len(self.mlp)):
             h = torch.relu(self.mlp.dense(i)(h, cd))
         if self.radius > 0.0:
+            count("merge.cut", beyond, total="merge.pairs")
             h = torch.where(beyond, torch.zeros_like(h), h)
         feat = torch.amax(h, dim=-2).float()
         return torch.cat([xyz0, feat], dim=-1)
@@ -187,7 +193,9 @@ class MotionEmbedding(nn.Module):
             merged = torch.cat([pos_diff, grouped1[..., pd:] - f0[:, :, None, :]], dim=-1)
         h = self.mlp(merged)
         if self.radius > 0.0:
-            h = torch.where(_norm(pos_diff.detach()) >= self.radius, torch.zeros_like(h), h)
+            beyond = _norm(pos_diff.detach()) >= self.radius
+            count("merge.cut", beyond, total="merge.pairs")
+            h = torch.where(beyond, torch.zeros_like(h), h)
         feat = torch.amax(h, dim=-2).float()
         return torch.cat([xyz0, feat], dim=-1)
 
@@ -330,6 +338,10 @@ class DeepCLR(nn.Module):
     * ``forward``: encode template and source (as one stacked 2B batch when
       they are padded alike) and register; returns ``(y_pred, loss)``, the loss from ``loss_module``
       when the model has one and labels ``y`` are given, else None.
+
+    Spans (``utils.profiling.span``): ``model.encode`` around each encode,
+    ``model.merge`` and ``model.head`` around the motion embedding and the
+    pose head of each register.
     """
 
     def __init__(self, cloud_features: SetAbstraction, merge: MotionEmbedding,
@@ -365,15 +377,19 @@ class DeepCLR(nn.Module):
                aug: Optional[torch.Tensor] = None) -> torch.Tensor:
         """points (B, N, D); aug: optional (B, 4, 4) transforms applied to
         the first point_dim dims."""
-        if aug is not None:
-            pd = self.point_dim
-            xyz = se3.transform_points(aug, points[..., :pd])
-            points = torch.cat([xyz, points[..., pd:]], dim=-1)
-        return self.cloud_features(points, mask)
+        with span("model.encode"):
+            if aug is not None:
+                pd = self.point_dim
+                xyz = se3.transform_points(aug, points[..., :pd])
+                points = torch.cat([xyz, points[..., pd:]], dim=-1)
+            return self.cloud_features(points, mask)
 
     def register(self, feats0: torch.Tensor, feats1: torch.Tensor) -> torch.Tensor:
         """Encoded template/source (B, P, 3+C) -> predicted label (B, dim)."""
-        return self.output(self.merge(feats0, feats1))
+        with span("model.merge"):
+            merged = self.merge(feats0, feats1)
+        with span("model.head"):
+            return self.output(merged)
 
     def encode_register(self, feats0: torch.Tensor, points: torch.Tensor,
                         mask: Optional[torch.Tensor] = None):

@@ -1,8 +1,10 @@
 """Synthetic KITTI-like clouds and training batches, made from a seed.
 
 The clouds have the statistics of ``bench.py``'s synthetic KITTI scans
-(normal, sigma = 30, 30, 2 m, plus a uniform intensity channel).  Used by
-``chip_smoke.py`` and the profiling scripts; no part of the model reads them.
+(normal, sigma = 30, 30, 2 m, plus a uniform intensity channel).
+``cad_train_batch`` is the ModelNet40 recipe's batch on CAD-like clouds
+(``data/synthetic.py::cad_cloud``).  Used by ``chip_smoke.py`` and the
+profiling scripts; no part of the model reads them.
 """
 from __future__ import annotations
 
@@ -11,9 +13,11 @@ from typing import Dict
 import numpy as np
 import torch
 
+from .data.synthetic import cad_cloud
 from .geometry import se3
+from .geometry.hostmath import _euler_to_matrix_np
 
-__all__ = ["kitti_like", "kitti_like_sequence", "train_batch"]
+__all__ = ["cad_train_batch", "kitti_like", "kitti_like_sequence", "train_batch"]
 
 
 def kitti_like(batch: int, n: int, seed: int) -> np.ndarray:
@@ -62,3 +66,24 @@ def train_batch(batch: int, n: int, seed: int) -> Dict[str, np.ndarray]:
     mask = np.ones((batch, n), bool)
     return {"template": t, "source": src, "template_mask": mask, "source_mask": mask,
             "y": se3.dualquat_from_matrix(m).numpy()}
+
+
+def cad_train_batch(batch: int, n: int, seed: int) -> Dict[str, np.ndarray]:
+    """A ModelNet40 training batch: self-pairs of CAD-like clouds of ``n``
+    xyz points, the source the template moved by the inverse of the
+    recipe's motion M (translation U(-0.1, 0.1) m and rotation U(-5, 5)
+    degrees an axis, ``configs/training/modelnet40.yaml``), both with the
+    recipe's N(0, 0.02) point noise; the label is M."""
+    rng = np.random.default_rng(seed)
+    t = np.stack([cad_cloud(rng, n)[:, :3] for _ in range(batch)])
+    m = np.tile(np.eye(4), (batch, 1, 1))
+    for i in range(batch):
+        m[i, :3, 3] = rng.uniform(-0.1, 0.1, 3)
+        m[i, :3, :3] = _euler_to_matrix_np(*np.deg2rad(rng.uniform(-5.0, 5.0, 3)))
+    inv = np.linalg.inv(m)
+    src = np.einsum("bij,bnj->bni", inv[:, :3, :3], t) + inv[:, None, :3, 3]
+    t = (t + rng.normal(0.0, 0.02, t.shape)).astype(np.float32)
+    src = (src + rng.normal(0.0, 0.02, src.shape)).astype(np.float32)
+    mask = np.ones((batch, n), bool)
+    return {"template": t, "source": src, "template_mask": mask, "source_mask": mask,
+            "y": se3.dualquat_from_matrix(torch.from_numpy(m.astype(np.float32))).numpy()}

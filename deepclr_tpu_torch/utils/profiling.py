@@ -5,7 +5,10 @@
 * ``trace``: a ``torch.profiler`` trace of a block, written as a Chrome
   trace file (``chrome://tracing``, Perfetto), with the spans on;
 * ``span``: the port's own spans at its layer boundaries (the inference
-  helper, the train step, the loader), off until ``enable_spans(True)``.
+  helper, the train step, the model's blocks, the loader), off until
+  ``enable_spans(True)``;
+* ``count``: counters kept on the device beside the spans, on and off
+  with them.
 
 Spans.  Off (the default), ``span`` checks one flag and returns a shared
 no-op context: no clock read, no ``record_function``, no allocation.  On,
@@ -20,6 +23,15 @@ cover; ``span_stats``) and appends ``(name, id, parent name, start_ns,
 end_ns)`` to a buffer of the last ``SPAN_BUFFER`` spans (``spans``).  No
 span synchronises a device: a span around asynchronous device work times
 its dispatch, and the span that waits for its result holds the wait.
+
+Counters.  ``count(name, mask, total)`` adds the true elements of a mask
+to the counter ``name`` (and its element count to ``total``) while spans
+are on; off, it checks the one flag and returns.  The sum stays on the
+mask's device, one launch and no synchronise, and nothing is counted
+while the current CUDA stream captures a graph: a replay runs no Python,
+so a count captured into it would add on every replay unseen.
+``counter_stats`` reads every counter with one synchronise;
+``reset_spans`` clears them with the spans.
 """
 from __future__ import annotations
 
@@ -34,8 +46,8 @@ from typing import Any, Dict, Hashable, Iterator, List, Optional, Tuple
 import torch
 from torch.profiler import record_function
 
-__all__ = ["SPAN_BUFFER", "device_timer", "enable_spans", "reset_spans", "span", "span_stats", "spans", "sync",
-           "trace"]
+__all__ = ["SPAN_BUFFER", "count", "counter_stats", "device_timer", "enable_spans", "reset_spans", "span",
+           "span_stats", "spans", "sync", "trace"]
 
 SPAN_BUFFER = 200_000   # spans kept by ``spans()``; the oldest are dropped
 
@@ -44,8 +56,9 @@ _OFF = contextlib.nullcontext()
 _now = time.perf_counter_ns
 _profiler_enabled = torch.autograd._profiler_enabled
 _local = threading.local()                  # .stack: this thread's open spans
-_lock = threading.Lock()                    # guards _totals
+_lock = threading.Lock()                    # guards _totals and _counters
 _totals: Dict[str, List[int]] = {}          # name -> [count, ns, self ns]
+_counters: Dict[str, Any] = {}              # name -> a host int, or an int64 tensor on a device
 _records: deque = deque(maxlen=SPAN_BUFFER)
 
 
@@ -114,10 +127,39 @@ def enable_spans(on: bool) -> bool:
 
 
 def reset_spans() -> None:
-    """Forget every recorded span: the sums and the buffer."""
+    """Forget every recorded span and counter: the sums, the buffer and the counts."""
     with _lock:
         _totals.clear()
         _records.clear()
+        _counters.clear()
+
+
+def count(name: str, mask: torch.Tensor, total: Optional[str] = None) -> None:
+    """While spans are on and the current CUDA stream is not capturing a
+    graph: add ``mask``'s true elements to the counter ``name`` (a sum on
+    the mask's device, no synchronise) and, given ``total``, its element
+    count to the counter ``total``.  Off, one flag check."""
+    if not _spans_on:
+        return
+    if mask.is_cuda and torch.cuda.is_current_stream_capturing():
+        return
+    n = mask.sum(dtype=torch.int64)
+    with _lock:
+        _counters[name] = _counters.get(name, 0) + n
+        if total is not None:
+            _counters[total] = _counters.get(total, 0) + mask.numel()
+
+
+def counter_stats() -> Dict[str, int]:
+    """``{name: count}`` of the counters since the last ``reset_spans``,
+    read with one synchronise."""
+    with _lock:
+        out = dict(_counters)
+    on_device = [name for name, v in out.items() if torch.is_tensor(v)]
+    if on_device:
+        home = out[on_device[0]].device
+        out.update(zip(on_device, torch.stack([out[name].to(home) for name in on_device]).tolist()))
+    return out
 
 
 def span_stats() -> Dict[str, Dict[str, float]]:

@@ -2,7 +2,9 @@
 port opens them: off they cost a flag check and record nothing; on they
 sum count, seconds and self seconds per name, nest per thread, and lie on
 the ``torch.profiler`` clock; the inference helpers, the train step and
-the loader's prefetcher open one span a frame, micro-step or batch."""
+the loader's prefetcher open one span a frame, micro-step or batch, and
+the model one a block.  The motion embedding's counters move only while
+spans are on, and never inside a captured CUDA graph."""
 import copy
 import json
 import logging
@@ -14,19 +16,21 @@ import torch
 
 from deepclr_tpu_torch import solver
 from deepclr_tpu_torch.config import Mode, create_default_config, finish_config
-from deepclr_tpu_torch.configs import KITTI_MODEL_CFG, KITTI_TRAIN_CFG
+from deepclr_tpu_torch import ops
+from deepclr_tpu_torch.configs import KITTI_MODEL_CFG, KITTI_TRAIN_CFG, MODELNET40_MODEL_CFG
 from deepclr_tpu_torch.data import PackWriter, make_data_loader
 from deepclr_tpu_torch.data.loader import _Prefetcher
 from deepclr_tpu_torch.engine import create_train_state, make_train_step, run_trainer
 from deepclr_tpu_torch.losses import make_loss_fn, make_metric_fns
 from deepclr_tpu_torch.models import BatchedSequentialHelper, ModelInferenceHelper, base, build_model
-from deepclr_tpu_torch.synthetic import train_batch
+from deepclr_tpu_torch.synthetic import cad_train_batch, kitti_like_sequence, train_batch
 from deepclr_tpu_torch.utils import profiling
-from deepclr_tpu_torch.utils.profiling import enable_spans, reset_spans, span, span_stats, spans
+from deepclr_tpu_torch.utils.profiling import counter_stats, enable_spans, reset_spans, span, span_stats, spans
 
 POINTS = 256
 HELPER = ("helper.predict", "helper.pad", "helper.upload", "helper.model", "helper.fetch")
 TRAIN = ("train.upload", "train.forward", "train.backward", "train.metrics")
+MODEL = ("model.encode", "model.merge", "model.head")
 
 
 @pytest.fixture(autouse=True)
@@ -157,13 +161,15 @@ def test_sequential_predict_gives_one_span_of_each_a_frame(monkeypatch):
     assert poses[0] is None and all(p is not None for p in poses[1:])
     stats = span_stats()
     assert {n: s["count"] for n, s in stats.items()} == {"helper.predict": 4, "helper.pad": 4, "helper.upload": 4,
-                                                        "helper.model": 4, "helper.fetch": 3}
+                                                        "helper.model": 4, "helper.fetch": 3, "model.encode": 4,
+                                                        "model.merge": 3, "model.head": 3}
     by_id = {}
     for name, id_, parent, start, end in spans():
         by_id.setdefault(id_, []).append(name)
-        assert parent == (None if name == "helper.predict" else "helper.predict") and end >= start
+        want = "helper.model" if name in MODEL else None if name == "helper.predict" else "helper.predict"
+        assert parent == want and end >= start
     assert sorted(by_id) == [1, 2, 3, 4]
-    assert all(sorted(by_id[i]) == sorted(HELPER) for i in (2, 3, 4))
+    assert all(sorted(by_id[i]) == sorted(HELPER + MODEL) for i in (2, 3, 4))
     children = sum(stats[n]["seconds"] for n in HELPER[1:])
     assert stats["helper.predict"]["self_seconds"] == pytest.approx(stats["helper.predict"]["seconds"] - children)
     assert len(padded) == 4   # the benchmark's wrapper at the module global sees every pad
@@ -178,13 +184,15 @@ def test_pairwise_and_batched_helpers_open_the_same_spans():
     enable_spans(True)
     ModelInferenceHelper(model, num_points=POINTS).predict_batch(frames[:2], frames[2:4])
     assert {n: s["count"] for n, s in span_stats().items()} == {
-        "helper.predict": 1, "helper.pad": 2, "helper.upload": 2, "helper.model": 1, "helper.fetch": 1}
+        "helper.predict": 1, "helper.pad": 2, "helper.upload": 2, "helper.model": 1, "helper.fetch": 1,
+        "model.encode": 1, "model.merge": 1, "model.head": 1}
     reset_spans()
     lanes = BatchedSequentialHelper(model, batch=2, num_points=POINTS)
     for i in range(3):
         lanes.step(frames[2 * i:2 * i + 2])
     assert {n: s["count"] for n, s in span_stats().items()} == {
-        "helper.predict": 3, "helper.pad": 3, "helper.upload": 3, "helper.model": 3, "helper.fetch": 2}
+        "helper.predict": 3, "helper.pad": 3, "helper.upload": 3, "helper.model": 3, "helper.fetch": 2,
+        "model.encode": 3, "model.merge": 2, "model.head": 2}
     assert {id_ for _, id_, _, _, _ in spans()} == {1, 2, 3}
 
 
@@ -239,11 +247,96 @@ def test_the_train_step_updates_in_a_span_every_kth_micro_step():
     records = spans()
     assert [i for n, i, _, _, _ in records if n == "train.update"] == [1, 3]
     assert [i for n, i, _, _, _ in records if n == "train.step"] == [0, 1, 2, 3]
-    assert all(p == "train.step" for n, _, p, _, _ in records if n != "train.step")
+    assert all(p == ("train.forward" if n in MODEL else "train.step") for n, _, p, _, _ in records if n != "train.step")
     # the optimizer's hooks fire inside the update's span: before it has exited
     assert len(hooked) == 2 and hooked[1] == [r for r in records if r[0] == "train.update"][:1]
     children = sum(stats[n]["seconds"] for n in TRAIN + ("train.update",))
     assert stats["train.step"]["self_seconds"] == pytest.approx(stats["train.step"]["seconds"] - children)
+
+
+# --- the model's blocks and counters ----------------------------------------------------------------------------
+
+def test_the_models_blocks_nest_under_the_forward_in_order():
+    model = _tiny_model()
+    _, step = _step(model, k=2)
+    state = create_train_state(model)
+    enable_spans(True)
+    for _ in range(2):
+        step(state, train_batch(2, POINTS, seed=3), 1e-3)
+    records = spans()
+    blocks = [(name, id_, parent, start) for name, id_, parent, start, _ in records if name.startswith("model.")]
+    assert all(parent == "train.forward" for _, _, parent, _ in blocks)
+    for step_id in (0, 1):
+        assert [n for n, i, _, _ in sorted(blocks, key=lambda r: r[3]) if i == step_id] == list(MODEL)
+    forward = span_stats()["train.forward"]
+    children = sum(span_stats()[n]["seconds"] for n in MODEL)
+    assert forward["self_seconds"] == pytest.approx(forward["seconds"] - children)
+
+
+def _modelnet40_model(npoint=64):
+    cfg = copy.deepcopy(MODELNET40_MODEL_CFG)
+    cfg["params"]["compute_dtype"] = "float32"
+    cfg["params"]["cloud_features"]["params"]["npoint"] = [npoint]
+    return build_model(cfg, device="cpu", seed=2)
+
+
+def test_the_cut_count_is_the_share_of_neighbours_at_or_beyond_the_radius():
+    """``merge.cut`` against a direct count of the kNN distances at or
+    beyond the radius; ``merge.pairs`` is B x P x k a forward."""
+    model = _modelnet40_model()
+    b = {k: torch.from_numpy(v) for k, v in cad_train_batch(3, 512, seed=4).items()}
+    enable_spans(True)
+    with torch.no_grad():
+        model(b["template"], b["source"])
+        feats = model.encode(torch.cat([b["template"], b["source"]]))
+    merge = model.merge
+    _, d2 = ops.knn(feats[:3, :, :3], feats[3:, :, :3], merge.k)
+    counts = counter_stats()
+    assert counts == {"merge.pairs": 3 * 64 * merge.k, "merge.cut": int((d2 >= merge.radius ** 2).sum())}
+    assert 0.5 < counts["merge.cut"] / counts["merge.pairs"] < 1.0
+    reset_spans()
+    assert counter_stats() == {}
+
+
+class _Untouchable:
+    def __getattr__(self, name):
+        raise AssertionError(f"a counter read .{name} with spans off")
+
+
+def test_spans_off_move_no_counter_and_enter_no_scope(monkeypatch):
+    scopes = []
+    monkeypatch.setattr(profiling, "record_function", lambda *a: scopes.append(a))
+    profiling.count("merge.cut", _Untouchable(), total="merge.pairs")   # one flag check: the mask is not read
+    model = _modelnet40_model(npoint=16)
+    _, step = _step(model, k=2)
+    step(create_train_state(model), cad_train_batch(2, 256, seed=4), 1e-3)
+    assert counter_stats() == {} and span_stats() == {} and scopes == []
+
+
+@pytest.mark.cuda
+def test_spans_on_leave_the_sequential_graph_bit_equal_and_count_only_eager_frames():
+    """On the card: a sequential helper with spans on replays the graph it
+    captured bit-equal to one with spans off, and its counters hold only
+    the warm-up frame, which ran eagerly: nothing was captured into the
+    graph."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the sequential graph is captured only there")
+    model = build_model(KITTI_MODEL_CFG, device="cuda", seed=3)
+    frames = kitti_like_sequence(6, 20000, seed=31)[0]
+    poses = {}
+    for on in (False, True):
+        enable_spans(on)
+        reset_spans()
+        helper = ModelInferenceHelper(model, is_sequential=True, num_points=16384, seed=4)
+        poses[on] = [helper.predict(f) for f in frames]
+        assert helper.graph_counts() == {"captures": 1, "replays": 4, "eager": 1}
+        enable_spans(False)
+        counts = counter_stats()
+        k = KITTI_MODEL_CFG["params"]["merge"]["params"]["k"]
+        assert counts == ({} if not on else {"merge.pairs": 1024 * k, "merge.cut": counts["merge.cut"]})
+    assert poses[True][0] is None and poses[False][0] is None
+    for got, want in zip(poses[True][1:], poses[False][1:]):
+        np.testing.assert_array_equal(got, want)
 
 
 # --- the loader -------------------------------------------------------------------------------------------------
