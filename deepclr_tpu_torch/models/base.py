@@ -8,14 +8,17 @@ and Morton-sorted on the host when the model is built ``presorted``.
 
 Each call is a ``helper.predict`` span (``utils.profiling.span``; its id
 the helper's call count) with the children ``helper.pad`` (fit and pad or
-subsample the clouds), ``helper.upload`` (stack and copy to the device),
-``helper.model`` (dispatch of the model's call) and ``helper.fetch`` (the
-pose back on the host: the wait for the device).
+subsample the clouds), ``helper.upload`` (stack where needed and copy to
+the device), ``helper.model`` (dispatch of the model's call) and
+``helper.fetch`` (the pose back on the host: the wait for the device).
 
 On a CUDA device a sequential helper replays its step as one CUDA graph
 (``_SequentialGraph``): the host then launches one graph a frame instead
-of every kernel and torch op of ``encode_register``.  ``graph_counts``
-says how often it did; a capture is a ``helper.capture`` span inside
+of every kernel and torch op of ``encode_register``.  Each registering
+frame reaches the graph's inputs from its pinned staging by one
+asynchronous copy an input: ``pad_cloud`` writes float32 frames straight
+into it, and uint16 codes are quantised into it.  ``graph_counts`` says
+how often it did each; a capture is a ``helper.capture`` span inside
 ``helper.model``.
 
 ``upload_dtype="uint16"`` quantises each padded cloud per axis on the host
@@ -42,24 +45,30 @@ UPLOAD_DTYPES = ("float32", "uint16")
 
 def pad_cloud(points: np.ndarray, num_points: int,
               rng: Optional[np.random.Generator] = None,
-              morton: bool = False):
+              morton: bool = False,
+              out: Optional[Tuple[np.ndarray, np.ndarray]] = None):
     """Pad (with zeros + mask) or uniformly subsample a cloud to exactly
     num_points; ``morton=True`` Morton-sorts the valid points.  Returns
-    (points (num_points, D) float32, mask (num_points,) bool)."""
+    (points (num_points, D) float32, mask (num_points,) bool): new arrays,
+    or the ``out`` pair of such arrays, filled in place.  Every row of
+    both is written, so a reused pair keeps nothing of an earlier cloud."""
     n, d = points.shape
+    idx = None
     if n > num_points:
         rng = rng or np.random.default_rng(0)
-        sel = rng.choice(n, size=num_points, replace=False)
-        points, n = points[sel], num_points
+        idx, n = rng.choice(n, size=num_points, replace=False), num_points
     if morton and n > 1:
-        points = points[morton_argsort_np(points)]
-    if n == num_points:
-        return points.astype(np.float32), np.ones(num_points, bool)
-    out = np.zeros((num_points, d), np.float32)
-    out[:n] = points
-    mask = np.zeros(num_points, bool)
+        order = morton_argsort_np(points if idx is None else points[idx])
+        idx = order if idx is None else idx[order]
+    pts, mask = out if out is not None else (np.empty((num_points, d), np.float32), np.empty(num_points, bool))
+    if idx is None:
+        pts[:n] = points
+    else:   # the indices are in range: "clip" skips the buffered write of "raise"
+        np.take(points, idx, axis=0, out=pts[:n], mode="clip")
+    pts[n:] = 0
     mask[:n] = True
-    return out, mask
+    mask[n:] = False
+    return pts, mask
 
 
 def _quantize_u16(pts: np.ndarray):
@@ -80,16 +89,33 @@ def _check_upload_dtype(upload_dtype: str) -> str:
     return upload_dtype
 
 
-def host_batch(padded: Sequence[Tuple[np.ndarray, np.ndarray]], upload_dtype: str) -> Tuple[np.ndarray, ...]:
-    """Stack padded clouds into the host arrays that are uploaded:
-    (points float32, mask) or, for uint16, (codes as int16 bits, offset,
-    scale, mask)."""
-    mask = np.stack([m for _, m in padded])
+def host_layout(batch: int, num_points: int, dim: int, upload_dtype: str) -> List[Tuple[tuple, np.dtype]]:
+    """The (shape, dtype) of each host array that is uploaded for ``batch``
+    clouds of ``num_points`` points of ``dim`` coordinates: (points
+    float32, mask) or, for uint16, (codes as int16 bits, offset, scale,
+    mask)."""
+    mask = ((batch, num_points), np.dtype(bool))
     if upload_dtype == "float32":
-        return np.stack([p for p, _ in padded]), mask
-    qs = [_quantize_u16(p) for p, _ in padded]
-    return (np.stack([q for q, _, _ in qs]).view(np.int16), np.stack([lo for _, lo, _ in qs]),
-            np.stack([s for _, _, s in qs]), mask)
+        return [((batch, num_points, dim), np.dtype(np.float32)), mask]
+    return [((batch, num_points, dim), np.dtype(np.int16)), ((batch, dim), np.dtype(np.float32)),
+            ((batch, dim), np.dtype(np.float32)), mask]
+
+
+def host_batch(padded: Sequence[Tuple[np.ndarray, np.ndarray]], upload_dtype: str,
+               out: Optional[Sequence[np.ndarray]] = None) -> Tuple[np.ndarray, ...]:
+    """Stack padded clouds into the host arrays that are uploaded, laid out
+    as ``host_layout`` says: new arrays, or ``out``'s, filled in place."""
+    if out is None:
+        num_points, dim = padded[0][0].shape
+        out = [np.empty(shape, dtype) for shape, dtype in host_layout(len(padded), num_points, dim, upload_dtype)]
+    for i, (pts, mask) in enumerate(padded):
+        out[-1][i] = mask
+        if upload_dtype == "float32":
+            out[0][i] = pts
+        else:
+            q, out[1][i], out[2][i] = _quantize_u16(pts)
+            out[0][i] = q.view(np.int16)
+    return tuple(out)
 
 
 def device_batch(host: Tuple[np.ndarray, ...], device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -118,9 +144,10 @@ def _fit_dim(cloud, input_dim: int, name: str) -> np.ndarray:
 
 class _SequentialGraph:
     """A sequential step on the card as one CUDA graph, on static buffers:
-    the inputs (``host_batch``'s arrays, copied in from pageable host
-    memory each frame, the bytes of an eager upload), the previous frame's
-    features (``state``) and the pose.  The graph holds the uint16
+    the inputs (laid out as ``host_layout`` says), the previous frame's
+    features (``state``) and the pose.  The inputs come in each frame from
+    host twins of them (``staging``, numpy views, page-locked on the card)
+    by one asynchronous copy each.  The graph holds the uint16
     dequantisation, ``encode_register(state, points, mask)`` and the copy
     of the new features into ``state``, which stream order puts after the
     register has read the old ones.
@@ -133,20 +160,36 @@ class _SequentialGraph:
     they lie, so a ``load_state_dict`` (which copies in place) changes
     the weights it runs."""
 
-    def __init__(self, host: Sequence[np.ndarray], state: torch.Tensor):
-        self.inputs = [torch.empty(a.shape, dtype=torch.from_numpy(a).dtype, device=state.device)
-                       for a in host]
+    def __init__(self, layout: Sequence[Tuple[tuple, np.dtype]], state: torch.Tensor):
+        self._pinned = [torch.from_numpy(np.empty(shape, dtype)) for shape, dtype in layout]
+        self._uploaded = None   # on the card, the event of the last copy out of the staging
+        if state.is_cuda:
+            self._pinned = [p.pin_memory() for p in self._pinned]
+            self._uploaded = torch.cuda.Event()
+        self._staging = [p.numpy() for p in self._pinned]
+        self.inputs = [torch.empty_like(p, device=state.device) for p in self._pinned]
         self.state = torch.empty_like(state)
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self.pose: Optional[torch.Tensor] = None
         self.warm = False
 
-    def load(self, host: Sequence[np.ndarray], state: torch.Tensor) -> None:
-        """Copy a frame's host arrays in, and the features to register
+    def staging(self) -> List[np.ndarray]:
+        """The host twins of the inputs as numpy arrays, once the last
+        upload from them has finished (the fetch of its pose has waited
+        for it already), so they are free to write."""
+        if self._uploaded is not None:
+            self._uploaded.synchronize()
+        return self._staging
+
+    def load(self, state: torch.Tensor) -> None:
+        """Copy the staging in, asynchronously on the current stream (which
+        puts the copy before the step), and the features to register
         against when they are not already the state buffer's (the first
         frame, a frame after ``reset_state``)."""
-        for buf, a in zip(self.inputs, host):
-            buf.copy_(torch.from_numpy(a))
+        for buf, host in zip(self.inputs, self._pinned):
+            buf.copy_(host, non_blocking=True)
+        if self._uploaded is not None:
+            self._uploaded.record(torch.cuda.current_stream(state.device))
         if state is not self.state:
             self.state.copy_(state)
 
@@ -185,12 +228,15 @@ class ModelInferenceHelper:
     ``encode_register``; runs on the device of the model's parameters.
 
     Sequential on a CUDA device, the registering frames run as a CUDA
-    graph (``_SequentialGraph``), one a key of the host arrays' shapes and
-    dtypes (in practice one a helper): the first registering frame of a
-    key runs eagerly, the second captures, every later one replays.
-    Encode-only frames (the first, and the first after ``reset_state``)
-    run eagerly; the next registering frame copies their features into the
-    graph's state buffer.  On the CPU every frame runs eagerly."""
+    graph (``_SequentialGraph``), one a helper: the first registering
+    frame runs eagerly, the second captures, every later one replays.
+    ``pad_cloud`` fills the graph's pinned staging with a float32 frame,
+    which then needs no stack and no pageable copy; a uint16 frame is
+    padded into new arrays and its codes, which need the padded cloud's
+    range, are quantised into the staging.  Encode-only frames (the first,
+    and the first after ``reset_state``) run eagerly; the next registering
+    frame copies their features into the graph's state buffer.  On the CPU
+    every frame runs eagerly."""
 
     def __init__(self, model: DeepCLR, is_sequential: bool = False, num_points: int = 16384,
                  seed: int = 0, upload_dtype: str = "float32"):
@@ -204,7 +250,7 @@ class ModelInferenceHelper:
         self._rng = np.random.default_rng(seed)
         self._morton = model.cloud_features.presorted
         self._calls = 0   # the id of each call's spans
-        self._graphs: Dict[tuple, _SequentialGraph] = {}
+        self._graph: Optional[_SequentialGraph] = None
         self._graph_counts = {"captures": 0, "replays": 0, "eager": 0}
 
     def has_state(self) -> bool:
@@ -217,16 +263,21 @@ class ModelInferenceHelper:
     def graph_counts(self) -> Dict[str, int]:
         """Sequential frames that registered, by how: ``replays`` of a CUDA
         graph, ``eager`` runs (every one on the CPU; the warm-up before a
-        capture on the card), and the ``captures``; counted whether or
-        not spans are on.  Replays over registering frames is the share
-        the graph ran."""
-        return dict(self._graph_counts)
+        capture on the card), and the ``captures``; ``staged``, those whose
+        input went through the graph's pinned staging (every registering
+        frame on the card); counted whether or not spans are on.  Replays
+        over registering frames is the share the graph ran."""
+        counts = self._graph_counts
+        on_card = self._device.type == "cuda"
+        return dict(counts, staged=counts["eager"] + counts["replays"] if on_card else 0)
 
-    def _pad(self, clouds, name: str):
+    def _pad(self, clouds, name: str, outs=None):
+        """Each cloud fitted and padded into new arrays, or into its pair
+        of ``outs``."""
         with span("helper.pad"):
             # pad_cloud through the module global: a wrapper set there sees every call
             return [pad_cloud(_fit_dim(c, self._input_dim, name), self._num_points, self._rng,
-                              morton=self._morton) for c in clouds]
+                              morton=self._morton, out=out) for c, out in zip(clouds, outs or [None] * len(clouds))]
 
     def _stack(self, clouds, name: str):
         padded = self._pad(clouds, name)
@@ -242,14 +293,17 @@ class ModelInferenceHelper:
                 y, self._state = self._model.encode_register(self._state, pts, mask)
             self._graph_counts["eager"] += 1
             return y
-        padded = self._pad([source], "source")
+        graph = self._graph
+        if graph is None:
+            layout = host_layout(1, self._num_points, self._input_dim, self._upload_dtype)
+            graph = self._graph = _SequentialGraph(layout, self._state)
+        staging = graph.staging()
+        float32 = self._upload_dtype == "float32"   # padded straight into the staging
+        padded = self._pad([source], "source", [(staging[0][0], staging[1][0])] if float32 else None)
         with span("helper.upload"):
-            host = host_batch(padded, self._upload_dtype)
-            key = tuple((a.shape, a.dtype) for a in host)
-            graph = self._graphs.get(key)
-            if graph is None:
-                graph = self._graphs[key] = _SequentialGraph(host, self._state)
-            graph.load(host, self._state)
+            if not float32:   # the codes need the padded cloud's range
+                host_batch(padded, self._upload_dtype, out=staging)
+            graph.load(self._state)
         with span("helper.model"):
             y = graph.run(self._model, self._graph_counts)
         self._state = graph.state

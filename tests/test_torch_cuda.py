@@ -565,12 +565,19 @@ def test_sequential_graph_replays_bit_equal_to_eager(dev, upload_dtype):
     frames with a reset after the seventh: one capture, a replay for every
     registering frame after the warm-up, poses bit-equal to the eager model
     on the same draws; replays add no launch counts; new weights loaded in
-    place after the capture give the new weights' eager poses."""
+    place after the capture give the new weights' eager poses; frames
+    below ``num_points`` between subsampled ones, through the same staging
+    as the full frames before them, give the eager poses too.  Every
+    registering frame is staged."""
     from deepclr_tpu_torch.synthetic import kitti_like_sequence
 
     model = build_model(KITTI_MODEL_CFG, device="cuda", seed=3)
     frames = kitti_like_sequence(14, 20000, seed=30)[0]
     helper = ModelInferenceHelper(model, is_sequential=True, num_points=16384, seed=4, upload_dtype=upload_dtype)
+
+    def counts(replays):
+        return {"captures": 1, "replays": replays, "eager": 1, "staged": 1 + replays}
+
     got = []
     for t, frame in enumerate(frames):
         if t == 7:
@@ -578,7 +585,7 @@ def test_sequential_graph_replays_bit_equal_to_eager(dev, upload_dtype):
         got.append(helper.predict(frame))
     rng = np.random.default_rng(4)
     _assert_poses_equal(got, _eager_sequential_poses(model, frames, rng, upload_dtype, resets=(7,)))
-    assert helper.graph_counts() == {"captures": 1, "replays": 11, "eager": 1}
+    assert helper.graph_counts() == counts(11)
 
     ops.reset_launch_counts()
     helper.reset_state()
@@ -586,7 +593,7 @@ def test_sequential_graph_replays_bit_equal_to_eager(dev, upload_dtype):
     assert ops.launch_counts() == {"fps": 1, "min_d2": 1, "fused_sa": 1, "fused_sa_argmax": 0, "fused_sa_bwd": 0,
                                    "fused_sa_bwd_finish": 0, "gather_bwd_index": 0, "gather_bwd": 0}
     _assert_poses_equal(later, _eager_sequential_poses(model, frames[:3], rng, upload_dtype))
-    assert helper.graph_counts() == {"captures": 1, "replays": 13, "eager": 1}
+    assert helper.graph_counts() == counts(13)
 
     with torch.no_grad():
         model.load_state_dict(build_model(KITTI_MODEL_CFG, device="cuda", seed=5).state_dict())
@@ -594,7 +601,13 @@ def test_sequential_graph_replays_bit_equal_to_eager(dev, upload_dtype):
     fresh = [helper.predict(frame) for frame in frames[3:7]]
     _assert_poses_equal(fresh, _eager_sequential_poses(model, frames[3:7], rng, upload_dtype))
     assert not np.array_equal(fresh[1], got[4])   # the same frame pair under the old weights
-    assert helper.graph_counts() == {"captures": 1, "replays": 16, "eager": 1}
+    assert helper.graph_counts() == counts(16)
+
+    helper.reset_state()
+    mixed = [frames[7], frames[8][:12000], frames[9], frames[10][:9000], frames[11][:15000]]
+    _assert_poses_equal([helper.predict(frame) for frame in mixed],
+                        _eager_sequential_poses(model, mixed, rng, upload_dtype))
+    assert helper.graph_counts() == counts(20)
 
 
 def _modelnet40_model_cfg():

@@ -39,8 +39,8 @@ from deepclr_tpu.models import save_weights as jax_save_weights  # noqa: E402
 from deepclr_tpu.models.base import _quantize_u16 as jax_quantize_u16, pad_cloud as jax_pad_cloud  # noqa: E402
 from deepclr_tpu_torch.models import (BatchedSequentialHelper, ModelInferenceHelper, build_model,  # noqa: E402
                                       load_jax_params, save_weights)
-from deepclr_tpu_torch.models.base import (UPLOAD_DTYPES, _quantize_u16, _SequentialGraph, device_batch,  # noqa: E402
-                                           host_batch, pad_cloud)
+from deepclr_tpu_torch.models.base import (UPLOAD_DTYPES, _fit_dim, _quantize_u16, _SequentialGraph,  # noqa: E402
+                                           device_batch, host_batch, host_layout, pad_cloud)
 
 REPO = osp.realpath(osp.join(osp.dirname(__file__), ".."))
 N = 256
@@ -113,6 +113,34 @@ def test_pad_cloud_equals_jax(n, morton):
     for g, r in zip(got, ref):
         assert g.dtype == r.dtype
         np.testing.assert_array_equal(g, r)
+
+
+_INPUTS = {"float32": lambda c: c, "float64": lambda c: c.astype(np.float64) * (1 + 1e-9),
+           "five_columns": lambda c: np.concatenate([c, c[:, :1] * 2], 1)}
+
+
+@pytest.mark.parametrize("n", [200, 256, 300])
+@pytest.mark.parametrize("morton", [False, True])
+@pytest.mark.parametrize("kind", sorted(_INPUTS))
+def test_pad_cloud_into_buffers_equals_jax(n, morton, kind):
+    """``pad_cloud(..., out=...)`` fills and returns the given arrays,
+    bit-equal to new arrays and to the JAX package on the same draws,
+    whatever a 300-point subsample left in them before; a float64 input
+    is cast as ``astype`` casts it, a wider one cut by ``_fit_dim``."""
+    cloud = _fit_dim(_INPUTS[kind](_cloud(n, n)), 4, "cloud")
+    out = np.empty((N, 4), np.float32), np.empty(N, bool)
+    pad_cloud(_cloud(1, 300), N, np.random.default_rng(2), out=out)   # every row stale
+    got = pad_cloud(cloud, N, np.random.default_rng(3), morton=morton, out=out)
+    assert got[0] is out[0] and got[1] is out[1]
+    new = pad_cloud(cloud, N, np.random.default_rng(3), morton=morton)
+    ref = jax_pad_cloud(cloud, N, np.random.default_rng(3), morton=morton)
+    for g, a, r in zip(got, new, ref):
+        assert g.dtype == a.dtype == r.dtype
+        np.testing.assert_array_equal(g, a)
+        np.testing.assert_array_equal(g, r)
+    valid = min(n, N)
+    assert got[1][:valid].all() and not got[1][valid:].any()
+    assert not got[0][valid:].any()
 
 
 @pytest.mark.parametrize("scale", [1.0, 100.0])
@@ -251,7 +279,7 @@ def test_cpu_sequential_helper_runs_eagerly_and_captures_no_graph(upload_dtype):
         assert (g is None) == (r is None)
         if r is not None:
             np.testing.assert_array_equal(g, r)
-    assert helper.graph_counts() == {"captures": 0, "replays": 0, "eager": 6}
+    assert helper.graph_counts() == {"captures": 0, "replays": 0, "eager": 6, "staged": 0}
 
 
 @pytest.mark.parametrize("upload_dtype", UPLOAD_DTYPES)
@@ -266,15 +294,34 @@ def test_the_graphed_step_is_the_eager_step(upload_dtype):
     cpu = torch.device("cpu")
     with torch.inference_mode():
         state = model.encode(*device_batch(hosts[0], cpu))
-        graph = _SequentialGraph(hosts[1], state)
+        graph = _SequentialGraph(host_layout(1, N, model.input_dim, upload_dtype), state)
         assert [b.dtype for b in graph.inputs] == [torch.from_numpy(a).dtype for a in hosts[1]]
         previous = state
         for host in hosts[1:]:
-            graph.load(host, previous)
+            for buf, a in zip(graph.staging(), host):
+                buf[...] = a
+            graph.load(previous)
             y = graph._step(model)
             y_ref, state = model.encode_register(state, *device_batch(host, cpu))
             assert torch.equal(y, y_ref) and torch.equal(graph.state, state)
             previous = graph.state
+
+
+@pytest.mark.parametrize("upload_dtype", UPLOAD_DTYPES)
+@pytest.mark.parametrize("batch", [1, 3])
+def test_host_batch_into_buffers_equals_new_arrays(upload_dtype, batch):
+    """``host_batch(..., out=)`` fills ``host_layout``'s arrays with what
+    it returns as new arrays, overwriting every value of an earlier batch."""
+    rng = np.random.default_rng(7)
+    padded = [pad_cloud(c, N, rng) for c in _clouds()[:batch]]
+    host = host_batch(padded, upload_dtype)
+    assert [(a.shape, a.dtype) for a in host] == host_layout(batch, N, padded[0][0].shape[1], upload_dtype)
+    out = [np.empty(a.shape, a.dtype) for a in host]
+    host_batch([pad_cloud(c, N, rng) for c in _clouds(10)[:batch]], upload_dtype, out=out)
+    filled = host_batch(padded, upload_dtype, out=out)
+    assert all(f is o for f, o in zip(filled, out))
+    for f, a in zip(filled, host):
+        np.testing.assert_array_equal(f, a)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
