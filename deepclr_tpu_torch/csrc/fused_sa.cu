@@ -34,7 +34,7 @@
 // ---- B2 / B5, the forward ----------------------------------------------
 //
 // What bounds it on H100: bytes, ~0.008 ms at the serving shapes (32 clouds
-// x 16384 points -> 1024 centres; chip_smoke.py's bound): the points,
+// x 16384 points -> 1024 centres, at the card's HBM rate): the points,
 // centres, centre terms, bitmap and output once, and the point-term rows
 // of the points inside some ball.  Its operations, ~40k in-radius pairs of
 // ~3k multiply-adds on the synthetic KITTI-like clouds (~1.2 points a 1 m
@@ -550,10 +550,11 @@ fused_sa_kernel(const float4* __restrict__ pts, const float* __restrict__ a,
 //     units).  A non-finite weight makes the bound itself non-finite: then
 //     all of da is NaN.
 //
-// Measured before this design (chip_smoke.py, back-to-back launches, NVIDIA
-// H100 80GB HBM3, 700 W), bf16 at 10 clouds x 16384 -> 1024: 0.19 ms on the
-// synthetic clouds (~1.2 points a 1 m ball), 2.1 ms on a dense cube (~190
-// points a 1 m ball), with float atomics for da, dW and db.
+// Measured before this design (back-to-back launches between two CUDA
+// events, NVIDIA H100 80GB HBM3, 700 W), bf16 at 10 clouds x 16384 ->
+// 1024: 0.19 ms on the synthetic clouds (~1.2 points a 1 m ball), 2.1 ms
+// on a dense cube (~190 points a 1 m ball), with float atomics for da, dW
+// and db.
 
 constexpr int kRound = 32;                  // pairs staged per round
 constexpr int kPasses = kPairs / kThreads;  // list_pairs' passes over a chunk's (point, centre) slots

@@ -300,41 +300,26 @@ class ICPRegistration:
 
     def register(self, template: Dict[str, Any], source: Dict[str, Any], return_info: bool = False):
         """4x4 float32 transform aligning source onto template; with
-        ``return_info`` also {iterations, final_delta, loop_ms,
-        host_read_ms, device_ms}.
+        ``return_info`` also {iterations, final_delta, host_read_ms}.
 
         The loop reads the update's size back each iteration to test
-        convergence.  ``loop_ms`` is the loop's host time, ``host_read_ms``
-        the part blocked in those reads (waiting for the iteration's device
-        work), and ``device_ms`` (on the card; None on the CPU) the sum of
-        each iteration's device span, from CUDA events around it: the rest
-        of ``loop_ms`` the device spends waiting for the host between
-        iterations.
+        convergence; ``host_read_ms`` is the host time blocked in those
+        reads (waiting for the iteration's device work).
         """
         step = self._step_fn(template, source)
         transform = torch.eye(4, dtype=torch.float32, device=self.device)
-        iterations, delta, read_s, spans = 0, float("inf"), 0.0, []
-        timed = self.device.type == "cuda"
-        loop_start = time.perf_counter()
+        iterations, delta, read_s = 0, float("inf"), 0.0
         # a NaN update fails `delta >= epsilon` and stops the loop, as the
         # reference's while-loop condition does
         while iterations < self._max_iterations and delta >= self._epsilon:
-            if timed:
-                spans.append((torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)))
-                spans[-1][0].record()
             new = step(transform)
             change = (new - transform).abs().max()
-            if timed:
-                spans[-1][1].record()
             t0 = time.perf_counter()
             delta = change.item()
             read_s += time.perf_counter() - t0
             transform = new
             iterations += 1
-        loop_ms = (time.perf_counter() - loop_start) * 1e3
         m = transform.cpu().numpy()
         if return_info:
-            return m, {"iterations": iterations, "final_delta": delta, "loop_ms": loop_ms,
-                       "host_read_ms": read_s * 1e3,
-                       "device_ms": sum(a.elapsed_time(b) for a, b in spans) if timed else None}
+            return m, {"iterations": iterations, "final_delta": delta, "host_read_ms": read_s * 1e3}
         return m

@@ -263,13 +263,10 @@ class ModelInferenceHelper:
     def graph_counts(self) -> Dict[str, int]:
         """Sequential frames that registered, by how: ``replays`` of a CUDA
         graph, ``eager`` runs (every one on the CPU; the warm-up before a
-        capture on the card), and the ``captures``; ``staged``, those whose
-        input went through the graph's pinned staging (every registering
-        frame on the card); counted whether or not spans are on.  Replays
-        over registering frames is the share the graph ran."""
-        counts = self._graph_counts
-        on_card = self._device.type == "cuda"
-        return dict(counts, staged=counts["eager"] + counts["replays"] if on_card else 0)
+        capture on the card), and the ``captures``; counted whether or not
+        spans are on.  Replays over registering frames is the share the
+        graph ran."""
+        return dict(self._graph_counts)
 
     def _pad(self, clouds, name: str, outs=None):
         """Each cloud fitted and padded into new arrays, or into its pair

@@ -73,8 +73,6 @@ class SetAbstractionMSG(nn.Module):
         # pads it so): the point sort is skipped, the centre sort kept.  An
         # unordered input only weakens the culling, never the result.
         self.presorted = bool(presorted)
-        # the fused op's backward: "kernel" (equality-select) or "argmax"
-        self.backward = "kernel"
 
     @property
     def out_dim(self) -> int:
@@ -104,7 +102,7 @@ class SetAbstractionMSG(nn.Module):
         )
         new_features = ops.ball_mlp_max(
             xyz, new_xyz, weights, biases, radius_cols, features=features, mask=mask,
-            compute_dtype=self.compute_dtype, backward=self.backward)
+            compute_dtype=self.compute_dtype)
         return new_xyz, new_features
 
     def _exact(self, xyz, features, mask):

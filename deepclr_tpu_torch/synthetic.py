@@ -3,7 +3,7 @@
 The clouds have the statistics of ``bench.py``'s synthetic KITTI scans
 (normal, sigma = 30, 30, 2 m, plus a uniform intensity channel).
 ``cad_train_batch`` is the ModelNet40 recipe's batch on CAD-like clouds
-(``data/synthetic.py::cad_cloud``).  Used by ``chip_smoke.py`` and the
+(``data/synthetic.py::cad_cloud``).  Used by the card tests and the
 profiling scripts; no part of the model reads them.
 """
 from __future__ import annotations

@@ -279,7 +279,7 @@ def test_cpu_sequential_helper_runs_eagerly_and_captures_no_graph(upload_dtype):
         assert (g is None) == (r is None)
         if r is not None:
             np.testing.assert_array_equal(g, r)
-    assert helper.graph_counts() == {"captures": 0, "replays": 0, "eager": 6, "staged": 0}
+    assert helper.graph_counts() == {"captures": 0, "replays": 0, "eager": 6}
 
 
 @pytest.mark.parametrize("upload_dtype", UPLOAD_DTYPES)

@@ -329,7 +329,7 @@ def test_spans_on_leave_the_sequential_graph_bit_equal_and_count_only_eager_fram
         reset_spans()
         helper = ModelInferenceHelper(model, is_sequential=True, num_points=16384, seed=4)
         poses[on] = [helper.predict(f) for f in frames]
-        assert helper.graph_counts() == {"captures": 1, "replays": 4, "eager": 1, "staged": 5}
+        assert helper.graph_counts() == {"captures": 1, "replays": 4, "eager": 1}
         enable_spans(False)
         counts = counter_stats()
         k = KITTI_MODEL_CFG["params"]["merge"]["params"]["k"]
