@@ -156,6 +156,79 @@ def _to_device(batch: Dict[str, Any], device: torch.device) -> Dict[str, torch.T
     return {k: torch.as_tensor(batch[k]).to(device, non_blocking=True) for k in BATCH_KEYS if k in batch}
 
 
+class _Upload:
+    """The train step's batch upload, which never makes the host wait for
+    the device and never copies from pageable memory.
+
+    On a CUDA device, tensors in pageable host memory (numpy arrays among
+    them) are copied into a ring of two slots of page-locked buffers, one
+    buffer a batch key, allocated on first use and grown when a batch
+    outgrows them; tensors already pinned are copied straight; tensors
+    already on the device are used as they are.  The copies to the device
+    run on a stream of their own and end in an event that the compute
+    stream waits on, so the next batch's copy overlaps this one's work.
+    A slot is written again two batches later, once the copy out of it
+    has finished: its event is queried, and only a copy still running is
+    waited for (``slot_waits``).  The device tensors are allocated on the
+    copy stream and recorded on the compute stream, so the caching
+    allocator hands their memory out again only after the compute stream
+    has read them.  Elsewhere (the CPU) the batch is converted as it is.
+
+    Every batch is uploaded whole: nothing is cached between batches.
+    ``counts`` are the batches by route (``staged``: some tensor went
+    through the ring; else ``pinned``: some tensor was copied straight;
+    else ``resident``) and the ``slot_waits``."""
+
+    SLOTS = 2
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self.counts = {"staged": 0, "pinned": 0, "resident": 0, "slot_waits": 0}
+        self._stream: Optional[torch.cuda.Stream] = None   # made on first use
+        self._slots = [{} for _ in range(self.SLOTS)]       # batch key -> flat pinned buffer
+        # each slot's last copy (an event never recorded counts as finished)
+        self._copied = [torch.cuda.Event() for _ in range(self.SLOTS)] if device.type == "cuda" else []
+        self._turn = 0
+
+    def __call__(self, batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+        host = {k: torch.as_tensor(batch[k]) for k in BATCH_KEYS if k in batch}
+        if self.device.type != "cuda":
+            self.counts["resident"] += 1
+            return {k: v.to(self.device) for k, v in host.items()}
+        out = {k: v.to(self.device) for k, v in host.items() if v.is_cuda}
+        off_card = {k: v for k, v in host.items() if not v.is_cuda}
+        if not off_card:
+            self.counts["resident"] += 1
+            return out
+        slot = self._turn
+        self._turn = (slot + 1) % self.SLOTS
+        pageable = [k for k, v in off_card.items() if not v.is_pinned()]
+        if pageable:
+            self.counts["staged"] += 1
+            if not self._copied[slot].query():
+                self.counts["slot_waits"] += 1
+                self._copied[slot].synchronize()
+            buffers = self._slots[slot]
+            for k in pageable:
+                v, buf = off_card[k], buffers.get(k)
+                if buf is None or buf.dtype != v.dtype or buf.numel() < v.numel():
+                    buf = buffers[k] = torch.empty(v.numel(), dtype=v.dtype, pin_memory=True)
+                off_card[k] = buf[:v.numel()].view(v.shape)
+                off_card[k].copy_(v)
+        else:
+            self.counts["pinned"] += 1
+        if self._stream is None:
+            self._stream = torch.cuda.Stream(self.device)
+        compute = torch.cuda.current_stream(self.device)
+        with torch.cuda.stream(self._stream):
+            for k, v in off_card.items():
+                out[k] = v.to(self.device, non_blocking=True)
+                out[k].record_stream(compute)
+            self._copied[slot].record(self._stream)
+        compute.wait_event(self._copied[slot])
+        return {k: out[k] for k in host}
+
+
 def make_train_step(model: nn.Module, optimizer, loss_fn: Callable, metric_fns: Dict[str, Callable],
                     accumulation_steps: int = 1, ema_alpha: float = 0.5, use_model_loss: bool = False,
                     weight_ema_decay: float = 0.0) -> Callable:
@@ -180,19 +253,27 @@ def make_train_step(model: nn.Module, optimizer, loss_fn: Callable, metric_fns: 
     accumulated gradients over the processes; the metric values of every
     micro-step are averaged over the processes before the EMAs.
 
+    The batch goes to the device through ``_Upload``: on a CUDA device
+    host arrays are staged through a reused ring of two pinned buffers and
+    copied on a stream of their own, so no micro-step makes the host wait
+    for the device.  ``train_step.upload_counts()`` gives its batches by
+    route (``staged``, ``pinned``, ``resident``) and its ``slot_waits``,
+    counted whether or not spans are on.
+
     Each micro-step is a ``train.step`` span (``utils.profiling.span``; its
     id ``state.step`` before the step) with the children ``train.upload``
-    (the batch to the device: a pageable copy blocks here), ``train.forward``
-    (the model and the loss), ``train.backward``, ``train.update`` (every
-    k-th micro-step: the optimizer's step, ``zero_grad`` and the Polyak
-    average) and ``train.metrics`` (the metric functions, the all-reduce and
-    the EMAs).
+    (the host's copy into the ring's slot and the copies' enqueue),
+    ``train.forward`` (the model and the loss), ``train.backward``,
+    ``train.update`` (every k-th micro-step: the optimizer's step,
+    ``zero_grad`` and the Polyak average) and ``train.metrics`` (the metric
+    functions, the all-reduce and the EMAs).
     """
     k = int(accumulation_steps)
     ddp = model if isinstance(model, DistributedDataParallel) else None
     net = model.module if ddp is not None else model
     device = next(net.parameters()).device
     heads = [m for m in net.modules() if isinstance(m, OutputSimple)]
+    upload = _Upload(device)
 
     def train_step(state: TrainState, batch: Dict[str, Any], lr: float) -> Dict[str, torch.Tensor]:
         if state.param_ema is not None and not weight_ema_decay > 0.0:
@@ -201,7 +282,7 @@ def make_train_step(model: nn.Module, optimizer, loss_fn: Callable, metric_fns: 
             for group in optimizer.param_groups:
                 group["lr"] = float(lr)
             with span("train.upload"):
-                b = _to_device(batch, device)
+                b = upload(batch)
             net.train()
             for head in heads:
                 head.seed_dropout(state.step)
@@ -238,6 +319,7 @@ def make_train_step(model: nn.Module, optimizer, loss_fn: Callable, metric_fns: 
                         old * ema_alpha + (1 - ema_alpha) * v
         return state.metrics_ema
 
+    train_step.upload_counts = lambda: dict(upload.counts)
     return train_step
 
 

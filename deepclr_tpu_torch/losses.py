@@ -160,7 +160,10 @@ class MetricType(enum.Enum):
     def fn(self, label_type: LabelType, weights: Optional[Sequence[float]] = None,
            **kwargs: Any) -> MetricFunction:
         """The metric as ``f(source, target)``: the mean over the batch, or,
-        with ``weights``, the weighted sum of its per-component batch means."""
+        with ``weights``, the weighted sum of its per-component batch means.
+        The weights are copied to a device once, at its first call there,
+        and kept (``f.device_weights``): a copy each call would make the
+        host wait for the device."""
 
         def generic(source, target, reduction):
             if self == MetricType.MAE:
@@ -182,7 +185,16 @@ class MetricType(enum.Enum):
         if weights is None:
             return lambda s, t: generic(s, t, "mean")
         w = torch.tensor(list(weights), dtype=torch.float32)
-        return lambda s, t: torch.sum(w.to(s.device) * torch.mean(generic(s, t, "none"), dim=0))
+        on_device: Dict[torch.device, torch.Tensor] = {}
+
+        def weighted(s, t):
+            wd = on_device.get(s.device)
+            if wd is None:
+                wd = on_device[s.device] = w.to(s.device)
+            return torch.sum(wd * torch.mean(generic(s, t, "none"), dim=0))
+
+        weighted.device_weights = on_device
+        return weighted
 
 
 def make_loss_fn(loss_cfgs: Sequence[Dict], label_type: LabelType) -> MetricFunction:

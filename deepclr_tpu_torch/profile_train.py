@@ -22,8 +22,8 @@ then runs 4 micro-steps (2 optimizer updates) three times:
    ``metrics``) and of the model's blocks inside ``train.forward``
    (``model.encode``, ``model.merge``, ``model.head``).  Nothing
    synchronises between them, so each is its host time: dispatch, or a
-   wait where the host blocks on the device (a pageable upload behind the
-   previous micro-step's kernels).  The counters of the same run give the
+   wait where the host blocks on the device (a full launch queue: the
+   step itself never waits for it).  The counters of the same run give the
    motion embedding's pairs a micro-step and the share of them at or
    beyond its radius (``merge.pairs``, ``merge.cut``).
 
